@@ -10,20 +10,30 @@ Runs from the root of a checkout with no ``build/``; needs one CUDA card
 with the seconds elapsed:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
-2. build: nvcc of ``pbrl_tpu_torch/csrc/mimic_step.cu`` and its ptxas report;
+2. build: nvcc of ``pbrl_tpu_torch/csrc/mimic_step.cu``, its ptxas report
+   (registers, stack frame, spills), and its launch shape and occupancy
+   (shared memory per block, blocks, warps and envs per SM);
 3. kernel against its plain version on the card, from the same inputs
    (the checks of bench.py's kernel-vs-XLA parity on qpos and qvel, plus
    xpos/xquat to 1e-4 and the fall flag exact): 256 humanoid envs at
    numpy-seeded reference phases with RSI noise 0.05/0.5 over 2 policy
    steps in ``pd`` mode (zero action) and ``torque`` mode (20 sin actions),
-   an airborne run (+1 m), and the sphere scene's free fall (5 envs,
+   an airborne run (+1 m), the ``substep`` and ``static`` self-contact
+   masses (one policy step, 256 envs), ragged batches of 4097 envs and of
+   1 env (one policy step), and the sphere scene's free fall (5 envs,
    3 substeps); then the same checks on one policy step at the eval's
-   shape (4096 envs, the policy's actions);
+   shape (4096 envs, the policy's actions), and two launches on those
+   inputs that must agree bit for bit (a race between lanes would not);
 4. eval: the exported walk policy, deterministic evaluation at 4096 envs
    for 300 policy steps through the kernel, with the kernel launch count
    of that run (300), its results against the recorded JAX eval
-   (``eval_reward`` >= 0.80, ``eval_episode_length`` >= 295), and the
-   kernel's time per launch (CUDA events) beside the plain version's;
+   (``eval_reward`` >= 0.80, ``eval_episode_length`` >= 295), its wall
+   time, the kernel's time per launch (CUDA events) at 1024, 4096 and
+   16384 envs beside the plain version's, its bound at 4096 envs (the FLOPs
+   these inputs need: a contact's Delassus mass only where it touches,
+   from the plain program's contact activity), and a ``torch.profiler`` trace
+   of 5 eval steps: the top 10 device operations, the device-busy share
+   of the window and the kernel launches per env step;
 5. one JSON line describing the kernel, the card's ``nvidia-smi`` line, and
    last ``{"ok": true, "device": {...}}``.
 
@@ -45,6 +55,9 @@ MIN_EVAL_REWARD = 0.80  # the walk policy on pbrl_tpu: 0.833 over 300/300 steps
 MIN_EVAL_LENGTH = 295.0
 JAX_EVAL = {"eval_reward": 0.833315908908844, "eval_episode_length": 300.0,
             "eval_pose_error": 0.028788337484002113}  # logs/eval_walk_r4head.json
+THREAD_PER_ENV_EVAL_S = "10.30-13.34 s"  # the earlier one-thread-per-env kernel (PERF.md)
+TIME_ENVS = (1024, 4096, 16384)
+PROFILE_STEPS = 5
 
 
 def log(phase, msg=""):
@@ -120,6 +133,73 @@ def check_errors(name, r, dq=5e-3, dv_max=1.0):
     check(r["dfall"] == 0.0, f"{name}: kernel fall flag differs")
 
 
+def time_launch(kstep, q, v, u, n=20):
+    """ms per launch of ``kstep`` on these inputs: CUDA events around ``n``
+    launches after 3 warm-up launches."""
+    import torch
+
+    for _ in range(3):
+        kstep(q, v, u)
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        kstep(q, v, u)
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def profile_eval(env, policy, stats, gen):
+    """``torch.profiler`` over PROFILE_STEPS steps of the eval loop (the body
+    of ``train.evaluate``) after 3 warm-up steps: the top 10 device
+    operations by time, the device-busy share of the window (union of the
+    device intervals over the span of all traced events) and the device
+    kernels per env step. None when the trace holds no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pbrl_tpu_torch.train import running_stats
+
+    def run(state, n):
+        for _ in range(n):
+            mean, _ = policy(running_stats.normalize(stats, state.obs))
+            state = env.step(state, mean)
+        return state
+
+    state = run(env.reset(EVAL_ENVS, gen), 3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(state, PROFILE_STEPS)
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    if not dev or sum(e.time_range.elapsed_us() for e in dev) <= 0:
+        return None
+    per_name = {}
+    for e in dev:
+        per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for a, b in spans[1:]:
+        if a > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+    t0 = min(e.time_range.start for e in events)
+    t1 = max(e.time_range.end for e in events)
+    kernels = [e for e in dev if not e.name.lower().startswith(("memcpy", "memset"))]
+    return {"window_ms": (t1 - t0) / 1e3, "busy_share": busy / (t1 - t0),
+            "device_ms_per_step": sum(per_name.values()) / 1e3 / PROFILE_STEPS,
+            "kernels_per_step": len(kernels) / PROFILE_STEPS,
+            "copies_per_step": (len(dev) - len(kernels)) / PROFILE_STEPS,
+            "top": [(name, us / 1e3 / PROFILE_STEPS) for name, us in top]}
+
+
 def fmt(d):
     return " ".join(f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}" for k, v in d.items())
 
@@ -160,6 +240,9 @@ def main():
     log("build", f"nvcc {rec['seconds']:.1f}s -> {rec['path']}")
     for ln in ptx:
         print(f"[smoke]   ptxas: {ln}", flush=True)
+    occ = mimic_kernel.occupancy()
+    log("occupancy", " ".join(f"{k}={v}" for k, v in occ.items()))
+    check(occ["blocks_per_sm"] >= 1, "the kernel's launch shape does not fit an SM")
 
     # 3. kernel against its plain version, same inputs
     model = humanoid_model()
@@ -189,6 +272,27 @@ def main():
                 q, v, u_pd, steps=2)
     log("check airborne", fmt(r))
     check_errors("airborne", r, dq=5e-4, dv_max=1.5e-2)
+    for smass, seed in (("substep", 12), ("static", 13)):
+        m_s = model.replace(option=model.option.replace(self_contact_mass=smass))
+        kstep, spec = mimic_kernel.build_mimic_step(
+            m_s, kp=kp, kd=kd, n_substeps=8, mode="pd", fall_allowed_bodies=allowed,
+            torque_scale=2.0)
+        check(spec.self_contact_mass == smass, f"spec did not take {smass}")
+        q, v = reference_batch(clip, B, np.random.default_rng(seed))
+        r = compare(kstep, lambda a, b, c, spec=spec: mimic_kernel.mimic_step_plain(
+            spec, a, b, c), q, v, u_pd, steps=1)
+        log(f"check self-mass {smass}", fmt(r))
+        check_errors(f"self-mass {smass}", r)
+    kstep, spec = mimic_kernel.build_mimic_step(
+        model, kp=kp, kd=kd, n_substeps=8, mode="pd", fall_allowed_bodies=allowed,
+        torque_scale=2.0)
+    for n_env, seed in ((EVAL_ENVS + 1, 14), (1, 15)):  # a ragged tail; a lone env
+        q, v = reference_batch(clip, n_env, np.random.default_rng(seed))
+        u = torch.clamp(torch.zeros(n_env, model.nu, device=dev), jrange[:, 0], jrange[:, 1])
+        r = compare(kstep, lambda a, b, c: mimic_kernel.mimic_step_plain(spec, a, b, c),
+                    q, v, u, steps=1)
+        log(f"check B={n_env}", fmt(r))
+        check_errors(f"B={n_env}", r)
     sm = sphere_model()
     sstep, sspec = mimic_kernel.build_mimic_step(sm, n_substeps=3)
     sq = torch.as_tensor(np.tile(sm.qpos0, (5, 1)), device=dev).contiguous()
@@ -211,17 +315,20 @@ def main():
         act, _ = policy(running_stats.normalize(stats, st.obs))
     u = env._target(st.qpos, st.time, act).contiguous()
     ks, sp = env._kstep, env._kspec
-    for _ in range(3):  # warm-up
-        out_k = ks(st.qpos, st.qvel, u)
+    out_k = ks(st.qpos, st.qvel, u)
+    again = ks(st.qpos, st.qvel, u)
     torch.cuda.synchronize()
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    n_time = 20
-    e0.record()
-    for _ in range(n_time):
-        ks(st.qpos, st.qvel, u)
-    e1.record()
-    torch.cuda.synchronize()
-    kernel_ms = e0.elapsed_time(e1) / n_time
+    same = all(torch.equal(a, b) for a, b in zip(out_k, again))
+    log("determinism", f"two launches at B={EVAL_ENVS} bit-equal: {same}")
+    check(same, "two launches on the same inputs differ: a race between lanes")
+    times = {}
+    for n in TIME_ENVS:
+        rep = -(-n // EVAL_ENVS)
+        q_n, v_n, u_n = (x.repeat(rep, 1)[:n].contiguous() for x in (st.qpos, st.qvel, u))
+        times[n] = time_launch(ks, q_n, v_n, u_n)
+    kernel_ms = times[EVAL_ENVS]
+    log("kernel time", " | ".join(f"B={n} {ms:.4f} ms/launch" for n, ms in times.items())
+        + f" | {smi}")
     t = time.perf_counter()
     out_p = mimic_kernel.mimic_step_plain(sp, st.qpos, st.qvel, u)
     torch.cuda.synchronize()
@@ -231,12 +338,20 @@ def main():
     log("main-shape", f"B={EVAL_ENVS} kernel {kernel_ms:.4f} ms/launch | plain {plain_ms:.1f} ms "
         f"| max|kernel-plain|={max_err:.3e} {fmt(r)} | {smi}")
     check_errors("main-shape", r)
-    flops = fp.count_policy_step_flops(sp) * EVAL_ENVS
+    # the bound counts the Delassus masses only where these inputs' contacts touch
+    active = fp.contact_activity(sp, st.qpos, st.qvel, u)
+    flops = fp.count_policy_step_flops(sp, active)
+    straight = fp.count_policy_step_flops(sp)
     nbytes = 4 * EVAL_ENVS * (2 * (sp.nq + sp.nv) + sp.nu + 7 * sp.nbody + 1)
     t_ops, t_bytes = flops / H100_F32_FLOPS * 1e3, nbytes / H100_BYTES * 1e3
     bound_ms, bound_by = max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-    log("bound", f"{flops / EVAL_ENVS:.0f} FLOP/env/step, {flops:.3e} FLOP, {nbytes} B "
-        f"-> {bound_ms:.4f} ms ({bound_by})")
+    ground = torch.tensor([s.body1 < 0 for s in sp.slots], device=active.device)
+    per_sub = active.shape[0] * EVAL_ENVS
+    log("bound", f"{flops / EVAL_ENVS:.1f} FLOP/env/step for these inputs (straight-line "
+        f"{straight}; touching per env and substep: {float((active & ground).sum()) / per_sub:.3f} "
+        f"ground, {float((active & ~ground).sum()) / per_sub:.3f} self contacts), {flops:.4e} "
+        f"FLOP, {nbytes} B -> {bound_ms:.5f} ms ({bound_by}; straight-line "
+        f"{straight * EVAL_ENVS / H100_F32_FLOPS * 1e3:.5f} ms)")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     torch.cuda.synchronize()
@@ -248,8 +363,8 @@ def main():
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t
     launches = ks.launches
-    log("eval", f"{EVAL_ENVS} envs x {EVAL_STEPS} steps in {eval_s:.2f}s, kernel launches "
-        f"{launches} | {smi}")
+    log("eval", f"{EVAL_ENVS} envs x {EVAL_STEPS} steps in {eval_s:.2f}s (the one-thread-per-"
+        f"env kernel: {THREAD_PER_ENV_EVAL_S}), kernel launches {launches} | {smi}")
     log("eval", "port: " + json.dumps(metrics))
     log("eval", "jax (recorded on a TPU, other start phases): " + json.dumps(JAX_EVAL))
     check(launches == EVAL_STEPS, f"kernel launches {launches} != {EVAL_STEPS}")
@@ -258,6 +373,17 @@ def main():
           f"eval_reward {metrics['eval_reward']} < {MIN_EVAL_REWARD}")
     check(metrics["eval_episode_length"] >= MIN_EVAL_LENGTH,
           f"eval_episode_length {metrics['eval_episode_length']} < {MIN_EVAL_LENGTH}")
+
+    prof = profile_eval(env, policy, stats, torch.Generator(device=dev).manual_seed(1))
+    if prof is None:
+        log("profile", "torch.profiler recorded no device time on this machine")
+    else:
+        log("profile", f"{PROFILE_STEPS} eval steps at {EVAL_ENVS} envs: window "
+            f"{prof['window_ms']:.3f} ms, device busy {prof['busy_share']:.4f}, device "
+            f"{prof['device_ms_per_step']:.4f} ms/step, {prof['kernels_per_step']:.1f} "
+            f"kernels and {prof['copies_per_step']:.1f} copies per step")
+        for name, ms in prof["top"]:
+            print(f"[smoke]   {ms:9.4f} ms/step  {name[:110]}", flush=True)
 
     # 5. report
     print(json.dumps({"kernels": [{

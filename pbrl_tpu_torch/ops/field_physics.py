@@ -29,6 +29,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
 
 from pbrl_tpu_torch.model.spec import GeomType, JointType, Model
 
@@ -1356,48 +1357,125 @@ def _op_name(func) -> str:
     return name.strip("_").removeprefix("r") if name.startswith("__r") else name.strip("_")
 
 
-def count_policy_step_flops(spec: SubstepSpec) -> int:
-    """Scalar FLOPs of one policy step for one env.
+class _Count(TorchFunctionMode):
+    """Weighs every tensor op run under it (``n``)."""
 
-    Runs the plain program on one CPU env under a ``TorchFunctionMode`` that
-    weighs every tensor op like ``count_substep_flops`` weighs jaxpr
-    primitives: the entry substep, one held-mass substep times
-    ``n_substeps - 1`` and the final FK. The program is straight-line, so
-    the count does not depend on the state.
-    """
-    from torch.overrides import TorchFunctionMode
+    def __init__(self):
+        super().__init__()
+        self.n = 0
 
-    class _Count(TorchFunctionMode):
-        def __init__(self):
-            super().__init__()
-            self.n = 0
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = _op_name(func)
+        if name == "clamp":
+            bounds = [a for a in args[1:3] if a is not None]
+            bounds += [v for k, v in kwargs.items() if k in ("min", "max") and v is not None]
+            self.n += len(bounds)
+        else:
+            self.n += _OP_WEIGHTS.get(name, 0)
+        return func(*args, **kwargs)
 
-        def __torch_function__(self, func, types, args=(), kwargs=None):
-            kwargs = kwargs or {}
-            name = _op_name(func)
-            if name == "clamp":
-                bounds = [a for a in args[1:3] if a is not None]
-                bounds += [v for k, v in kwargs.items() if k in ("min", "max") and v is not None]
-                self.n += len(bounds)
-            else:
-                self.n += _OP_WEIGHTS.get(name, 0)
-            return func(*args, **kwargs)
 
+def _counted(fn, *args, **kwargs):
+    """``(fn(*args, **kwargs), its FLOPs)``."""
+    with _Count() as c:
+        out = fn(*args, **kwargs)
+    return out, c.n
+
+
+def _unit_state(spec: SubstepSpec):
+    """qpos, qvel, u rows of one CPU env, for counting."""
     like = torch.zeros(1)
-    qpos = [like + 0.1] * spec.nq
-    qvel = [like] * spec.nv
-    u = [like] * max(spec.nu, 1)
-    with _Count() as c0:
-        _, _, _, held = substep(spec, qpos, qvel, u)
-    n_entry = c0.n
+    return [like + 0.1] * spec.nq, [like] * spec.nv, [like] * max(spec.nu, 1)
+
+
+def _delassus_flops(spec: SubstepSpec):
+    """FLOPs of the plain-M factor, and per slot those of its Delassus mass
+    (the unit force, the solve and ``1 / max(w, eps)``) as
+    ``_contact_forces`` spends them."""
+    qpos, _, _ = _unit_state(spec)
+    xpos, xquat, S, origin = _fk(spec, qpos)
+    M = _crba(spec, S, _spatial_inertias(spec, xpos, xquat, origin))
+    (L0, invd0), n_factor = _counted(_factor, spec, M, [0.0] * spec.nv)
+
+    def mass(slot, arm, n):
+        f_hat = v3_cross(arm, n) + n
+        w = _delassus_inv_mass(spec, L0, invd0, S, slot.body2, f_hat, body1=slot.body1)
+        return 1.0 / _max(w, 1e-6)
+
+    cache, per_slot = {}, []
+    for slot in spec.slots:
+        _, pos, n, frame = _contact_geometry(spec, slot, xpos, xquat, qpos[0], cache)
+        n = v3_const(frame[0]) if frame is not None else n
+        per_slot.append(_counted(mass, slot, v3_sub(pos, origin), n)[1])
+    return n_factor, per_slot
+
+
+def count_policy_step_flops(spec: SubstepSpec, active: Optional[torch.Tensor] = None) -> int:
+    """Scalar FLOPs of one policy step.
+
+    Without ``active``: for one env, the straight-line program. Runs the
+    plain program on one CPU env under a ``TorchFunctionMode`` that weighs
+    every tensor op like ``count_substep_flops`` weighs jaxpr primitives:
+    the entry substep, one held-mass substep times ``n_substeps - 1`` and
+    the final FK. The program is straight-line, so this count does not
+    depend on the state.
+
+    With ``active``, the ``(n_substeps, B, nslot)`` touching contacts of
+    ``contact_activity``: what these B envs need, summed. A contact that
+    does not touch pushes with zero force whatever its mass, so a ground or
+    'substep' mass is needed only at a substep where its contact touches, a
+    held 'step' mass only where its contact touches at some substep of the
+    step, and the plain-M factor only at a substep that solves a mass.
+    """
+    qpos, qvel, u = _unit_state(spec)
+    (_, _, _, held), n_entry = _counted(substep, spec, qpos, qvel, u)
     n_rest = 0
     if spec.n_substeps > 1:
-        with _Count() as c1:
-            substep(spec, qpos, qvel, u, held_self=held or None)
-        n_rest = c1.n
-    with _Count() as c2:
-        fk_outputs(spec, qpos)
-    return n_entry + (spec.n_substeps - 1) * n_rest + c2.n
+        n_rest = _counted(substep, spec, qpos, qvel, u, held_self=held or None)[1]
+    per_env = n_entry + (spec.n_substeps - 1) * n_rest + _counted(fk_outputs, spec, qpos)[1]
+    if active is None:
+        return per_env
+
+    n_factor, per_slot = _delassus_flops(spec)
+    cost = torch.tensor(per_slot, dtype=torch.float64)
+    active = active.cpu()
+    ns, B = active.shape[:2]
+    ground = torch.tensor([s.body1 < 0 for s in spec.slots])
+    entry = (torch.arange(ns) == 0)[:, None]
+    mode = spec.self_contact_mass
+    # the masses the straight-line program solves at each substep, and those needed
+    if mode == "substep":
+        program = torch.ones((ns, len(per_slot)), dtype=torch.bool)
+        needed = active
+    else:
+        program = ground | (entry & (mode == "step"))
+        held_needed = (~ground & active.any(0))[None] & entry[:, :, None] & (mode == "step")
+        needed = (ground & active) | held_needed
+    spared = B * float((program * cost).sum()) - float((needed * cost).sum())
+    spared += n_factor * int((~needed.any(-1)).sum())
+    return int(B * per_env - spared)
+
+
+def contact_activity(spec: SubstepSpec, qpos: torch.Tensor, qvel: torch.Tensor,
+                     u: torch.Tensor) -> torch.Tensor:
+    """``(n_substeps, B, nslot)`` bool: which contacts touch (distance < 0)
+    at each substep of one policy step of the plain program from these
+    ``(B, K)`` inputs, on their device."""
+    q = list(qpos.t().contiguous().to(torch.float32).unbind(0))
+    v = list(qvel.t().contiguous().to(torch.float32).unbind(0))
+    target = list(u.t().contiguous().to(torch.float32).unbind(0))
+    out, held = [], None
+    for k in range(spec.n_substeps):
+        xpos, xquat, _, _ = _fk(spec, q)
+        cache = {}
+        out.append(torch.stack([
+            _ensure_field(_contact_geometry(spec, slot, xpos, xquat, q[0], cache)[0], q[0]) < 0.0
+            for slot in spec.slots], 1))
+        q, v, _, h = substep(spec, q, v, target, held_self=held)
+        if k == 0:
+            held = h or None
+    return torch.stack(out, 0)
 
 
 # =========================================================================
@@ -1413,11 +1491,11 @@ _SELF_MASS = ("step", "substep", "static")
 @functools.lru_cache(maxsize=None)
 def _table_source():
     """The kernel table as the CUDA source defines it: the ``MAX*`` limits
-    (``#define``) and the ``MODEL_FIELDS`` list of (C type, name, count
-    expression). The source is the one definition of the layout."""
+    and ``LANES`` (``#define``) and the ``MODEL_FIELDS`` list of (C type,
+    name, count expression). The source is the one definition of the layout."""
     with open(KERNEL_SOURCE) as f:
         src = f.read()
-    limits = {k: int(v) for k, v in re.findall(r"^#define (MAX\w+) (\d+)$", src, re.M)}
+    limits = {k: int(v) for k, v in re.findall(r"^#define (MAX\w+|LANES) (\d+)$", src, re.M)}
     body = src[src.index("#define MODEL_FIELDS(X)"):src.index("#define DECL_FIELD")]
     fields = tuple((t, n, c.strip())
                    for t, n, c in re.findall(r"X\((int|float), (\w+), ([^)]+)\)", body))
@@ -1425,7 +1503,8 @@ def _table_source():
 
 
 def table_limits() -> dict:
-    """The ``MAX*`` capacities of the kernel table."""
+    """The ``MAX*`` capacities of the kernel table, and ``LANES``: the lanes
+    per env on the card, the width of the contact-slot rounds."""
     return dict(_table_source()[0])
 
 
@@ -1464,6 +1543,34 @@ def _anc_lists(spec: SubstepSpec):
     return [sorted(a, reverse=True) for a in anc]
 
 
+def _slot_rounds(spec: SubstepSpec) -> List[int]:
+    """The order in which a warp's lanes take the contact slots, in rounds
+    of the kernel's ``LANES`` (-1: an idle lane). A warp runs the code path
+    of every slot kind present in a round, so the slots of one kind are kept
+    together: each kind's slots, cut into chunks of at most ``LANES``, are
+    packed first-fit-decreasing into rounds, the ground kinds before the self
+    kinds (the ground slots solve their Delassus mass whenever they touch)."""
+    lanes = table_limits()["LANES"]
+    rounds = []
+    for ground in (True, False):
+        chunks = []
+        for kind in SLOT_KINDS:
+            ids = [si for si, sl in enumerate(spec.slots)
+                   if sl.kind == kind and (sl.body1 < 0) == ground]
+            chunks += [ids[c:c + lanes] for c in range(0, len(ids), lanes)]
+        for chunk in sorted(chunks, key=len, reverse=True):
+            for r in rounds:
+                if len(r) + len(chunk) <= lanes:
+                    r.extend(chunk)
+                    break
+            else:
+                rounds.append(list(chunk))
+    order = []
+    for r in rounds:
+        order += r + [-1] * (lanes - len(r))
+    return order
+
+
 def pack_spec(spec: SubstepSpec) -> np.ndarray:
     """Flatten ``spec`` into the CUDA kernel's ``Model`` table (int32 words;
     float fields are stored as their float32 bit patterns)."""
@@ -1486,9 +1593,28 @@ def pack_spec(spec: SubstepSpec) -> np.ndarray:
     nb, nv = spec.nbody, spec.nv
     h = spec.dt
     njnt = sum(len(b.joints) for b in spec.bodies)
+    anc = _anc_lists(spec)
+    maxv = table_limits()["MAXV"]
+    pidx = -np.ones((maxv, maxv), np.int64)
+    for p, (i, j) in enumerate(spec.m_pairs):
+        pidx[i, j] = p
+
+    # bodies by tree level: body 0 alone first (it sets the origin), then
+    # each body one level below its parent (a further root at level 1)
+    level = [0] * nb
+    for b in range(1, nb):
+        p = spec.bodies[b].parent
+        if p >= b:
+            raise ValueError("kernel table needs parents before children")
+        level[b] = 1 if p < 0 else level[p] + 1
+    nlevel = max(level) + 1
+    # dofs by depth (number of ancestor dofs): a depth needs only shallower ones
+    depth = [len(a) for a in anc]
+    ndepth = max(depth) + 1 if nv else 0
+
     put("nq", [spec.nq]); put("nv", [nv]); put("nu", [spec.nu]); put("nbody", [nb])
     put("njnt", [njnt]); put("ngeom", [len(spec.geom_body)]); put("nslot", [len(spec.slots)])
-    put("nlimit", [len(spec.limits)]); put("npair", [len(spec.m_pairs)])
+    put("npair", [len(spec.m_pairs)]); put("nlevel", [nlevel]); put("ndepth", [ndepth])
     put("mode", [{"pd": 0, "torque": 1}[spec.mode]]); put("n_substeps", [spec.n_substeps])
     put("self_mass", [_SELF_MASS.index(spec.self_contact_mass)])
     put("self_friction", [int(spec.self_contact_friction)])
@@ -1526,6 +1652,20 @@ def pack_spec(spec: SubstepSpec) -> np.ndarray:
     put("body_subtree_mass", subtree)
     put("body_ipos", [bm.ipos for bm in spec.bodies])
     put("body_inertia", [bm.inertia for bm in spec.bodies])
+    by_level = sorted(range(nb), key=lambda b: (level[b], b))
+    put("lvl_ptr", [sum(1 for b in range(nb) if level[b] < l) for l in range(nlevel + 1)])
+    put("lvl_body", by_level)
+    children = [sorted((c for c in range(nb) if spec.bodies[c].parent == b), reverse=True)
+                for b in range(nb)]
+    put("child_ptr", np.cumsum([0] + [len(c) for c in children]))
+    put("child", [c for cs in children for c in cs])
+    slots_of = [[] for _ in range(nb)]
+    for si, slot in enumerate(spec.slots):
+        slots_of[slot.body2].append(2 * si)
+        if slot.body1 >= 0:
+            slots_of[slot.body1].append(2 * si + 1)
+    put("body_slot_ptr", np.cumsum([0] + [len(e) for e in slots_of]))
+    put("body_slot", [e for es in slots_of for e in sorted(es)])
     put("jnt_type", jtype); put("jnt_qadr", jq); put("jnt_dadr", jd)
     put("jnt_axis", jaxis); put("jnt_pos", jpos)
 
@@ -1534,17 +1674,28 @@ def pack_spec(spec: SubstepSpec) -> np.ndarray:
     if spec.mode == "pd":
         for a in range(spec.nu):
             extra[spec.act_dof[a]] = extra[spec.act_dof[a]] + h * spec.kd[a]
+    dof_lim, dof_act = [-1] * nv, [-1] * nv
+    for l, (_, da, _, _) in enumerate(spec.limits):
+        if dof_lim[da] >= 0:
+            raise ValueError("kernel table needs at most one limit per dof")
+        dof_lim[da] = l
+    for a, da in enumerate(spec.act_dof):
+        if dof_act[da] >= 0:
+            raise ValueError("kernel table needs at most one actuator per dof")
+        dof_act[da] = a
     put("dof_body", spec.dof_body); put("dof_armature", spec.dof_armature)
     put("dof_damping", spec.dof_damping); put("dof_extra_diag", extra)
+    put("dof_lim", dof_lim); put("dof_act", dof_act)
+    put("dep_ptr", [sum(1 for d in depth if d < k) for k in range(ndepth + 1)])
+    put("dep_dof", sorted(range(nv), key=lambda i: (depth[i], i)))
 
-    # mass-matrix pairs and the ancestor lists of the tree factor
-    maxv = table_limits()["MAXV"]
-    pidx = -np.ones((maxv, maxv), np.int64)
-    for p, (i, j) in enumerate(spec.m_pairs):
-        pidx[i, j] = p
+    # mass-matrix pairs, the ancestor lists of the solves and the factor by
+    # body level: entry (k, i) takes L(c, i) L(c, k) over the descendants c
+    # of k in descending order, first the dofs of descendant bodies (one
+    # pass), then its own body's later dofs (right-looking steps)
     put("pair_i", [i for i, _ in spec.m_pairs]); put("pair_j", [j for _, j in spec.m_pairs])
-    put("pidx", pidx)
-    anc = _anc_lists(spec)
+    if len(spec.m_pairs) > 1024:
+        raise ValueError("model too large for the kernel table: npair")
     ptr, adof, apair = [0], [], []
     for k in range(nv):
         for i in anc[k]:
@@ -1552,13 +1703,49 @@ def pack_spec(spec: SubstepSpec) -> np.ndarray:
             apair.append(pidx[k, i])
         ptr.append(len(adof))
     put("anc_ptr", ptr); put("anc_dof", adof); put("anc_pair", apair)
+    fa_ptr, fa_ent, fa_optr, fa_op = [0], [], [0], []
+    fl_ptr, piv_ptr, piv, upd_ptr, upd = [0], [0], [], [0], []
+    for lv in range(nlevel):
+        bodies = [b for b in by_level if level[b] == lv]
+        for b in bodies:
+            own = spec.body_dofs[b]
+            for k in own:
+                below = [c for c in range(nv - 1, own[-1], -1) if k in anc[c]]
+                for i in [k] + anc[k]:
+                    fa_ent.append(pidx[k, i] | k << 10 | int(i == k) << 16)
+                    fa_op.extend(pidx[c, i] | pidx[c, k] << 10 for c in below)
+                    fa_optr.append(len(fa_op))
+        fa_ptr.append(len(fa_ent))
+        for step in range(max((len(spec.body_dofs[b]) for b in bodies), default=0)):
+            for b in bodies:
+                own = spec.body_dofs[b]
+                if step >= len(own):
+                    continue
+                k = own[-1 - step]
+                piv.append(k | pidx[k, k] << 8)
+                for x, ia in enumerate(anc[k]):
+                    if ia < own[0]:
+                        continue  # a target of an ancestor body: its own pass
+                    for ib in anc[k][x:]:
+                        if pidx[ia, ib] < 0:
+                            raise ValueError("kernel table: the tree factor would fill in")
+                        upd.append(pidx[ia, ib] | pidx[k, ia] << 10 | pidx[k, ib] << 20)
+            piv_ptr.append(len(piv))
+            upd_ptr.append(len(upd))
+        fl_ptr.append(len(piv_ptr) - 1)
+    put("fa_ptr", fa_ptr); put("fa_ent", fa_ent); put("fa_op_ptr", fa_optr); put("fa_op", fa_op)
+    put("fl_step_ptr", fl_ptr); put("fb_piv_ptr", piv_ptr); put("fb_piv", piv)
+    put("fb_upd_ptr", upd_ptr); put("fb_upd", upd)
 
     put("geom_body", spec.geom_body); put("geom_pos", spec.geom_pos)
     put("geom_quat", spec.geom_quat); put("geom_size", spec.geom_size)
 
-    # contact slots, with the dof support of each Delassus solve
+    # contact slots, with the dof support of each Delassus solve and, per
+    # support entry, its dof's ancestors' positions in the support (a byte
+    # each, in anc_dof order)
     kind, static, frame, d0, sstart, scount, sdof, ssign = [], [], [], [], [], [], [], []
-    for slot in spec.slots:
+    dl_pos, dl_end = [], []
+    for si, slot in enumerate(spec.slots):
         kind.append(SLOT_KINDS.index(slot.kind))
         fr = _static_plane_frame(spec, slot) if slot.kind.startswith("plane") else None
         static.append(int(fr is not None))
@@ -1567,10 +1754,17 @@ def pack_spec(spec: SubstepSpec) -> np.ndarray:
         c2 = set(_chain_dofs(spec, slot.body2))
         c1 = set(_chain_dofs(spec, slot.body1)) if slot.body1 >= 0 else set()
         sstart.append(len(sdof))
-        for i in sorted(c1 | c2):
+        supp = sorted(c1 | c2)
+        for i in supp:
             sdof.append(i)
             ssign.append(0 if (i in c1 and i in c2) else (1 if i in c2 else -1))
+            dl_pos.extend(supp.index(a) for a in anc[i])
         scount.append(len(sdof) - sstart[-1])
+        dl_end.append(len(dl_pos))
+    if scount and max(scount) > table_limits()["MAXSL"]:
+        raise ValueError("model too large for the kernel table: a slot's support")
+    rounds = _slot_rounds(spec)
+    put("nslot_order", [len(rounds)]); put("slot_order", rounds)
     put("slot_kind", kind)
     put("slot_g1", [s.g1 for s in spec.slots]); put("slot_g2", [s.g2 for s in spec.slots])
     put("slot_b1", [s.body1 for s in spec.slots]); put("slot_b2", [s.body2 for s in spec.slots])
@@ -1580,12 +1774,19 @@ def pack_spec(spec: SubstepSpec) -> np.ndarray:
     put("slot_meff", [s.m_eff for s in spec.slots])
     put("slot_extra", [tuple(s.extra) + (0.0,) * (3 - len(s.extra)) for s in spec.slots])
     put("slot_frame", frame); put("slot_d0", d0)
+    _, off, n = where["dl_pos"]
+    if len(dl_pos) > 4 * n:
+        raise ValueError("model too large for the kernel table: dl_pos")
+    raw = np.zeros(4 * n, np.uint8)
+    raw[:len(dl_pos)] = dl_pos
+    words[off:off + n] = raw.view("<i4")
+    put("slot_dl_end", dl_end)
     put("supp_dof", sdof); put("supp_sign", ssign)
 
-    put("act_dof", spec.act_dof); put("act_qadr", spec.act_qadr)
+    put("act_qadr", spec.act_qadr)
     put("act_kp", spec.kp); put("act_kd", spec.kd)
     put("act_lo", spec.tau_lo); put("act_hi", spec.tau_hi)
-    put("lim_qadr", [l[0] for l in spec.limits]); put("lim_dadr", [l[1] for l in spec.limits])
+    put("lim_qadr", [l[0] for l in spec.limits])
     put("lim_lo", [l[2] for l in spec.limits]); put("lim_hi", [l[3] for l in spec.limits])
     limits = table_limits()
     for name, limit in (("nbody", "MAXB"), ("nq", "MAXQ"), ("nv", "MAXV"), ("nu", "MAXU")):

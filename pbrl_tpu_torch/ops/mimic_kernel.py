@@ -7,10 +7,12 @@ qvel (B,nv), u (B,nu)) -> (qpos', qvel', xpos (B,nbody,3), xquat
 (``n_substeps`` physics substeps, then the final-pose FK; ``fall`` is the
 max over substeps).
 
-For CUDA tensors the step launches ``csrc/mimic_step.cu`` (one thread per
-env), built with ``nvcc`` for ``sm_90a`` into ``build/pbrl_tpu_torch/`` at
-first use and bound with ``ctypes``. For CPU tensors it runs the plain
-version, :func:`mimic_step_plain`, built from the field program in
+For CUDA tensors the step launches ``csrc/mimic_step.cu`` (one warp per
+env; working state and the hot index tables in shared memory), built with
+``nvcc`` for ``sm_90a`` into ``build/pbrl_tpu_torch/`` at first use and
+bound with ``ctypes``. The kernel reads and writes the env's (B, K) rows as
+they are: no transposes. For CPU tensors it runs the plain version,
+:func:`mimic_step_plain`, built from the field program in
 :mod:`pbrl_tpu_torch.ops.field_physics`. Nothing falls back from one to
 the other: a build or launch failure raises.
 """
@@ -38,7 +40,6 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "build", "pbrl_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
-THREADS_PER_BLOCK = 32
 
 
 # ---------------------------------------------------------------------------
@@ -113,11 +114,28 @@ def build_library():
         report = f.read()
     lib = ctypes.CDLL(lib_path)
     bind(lib)
-    lib.mimic_step_launch.argtypes = ([ctypes.c_void_p, ctypes.c_int]
-                                      + [ctypes.c_void_p] * 8
-                                      + [ctypes.c_int, ctypes.c_void_p])
+    lib.mimic_step_launch.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 9
     lib.mimic_step_launch.restype = ctypes.c_int
+    lib.mimic_step_occupancy.argtypes = [ctypes.c_void_p]
+    lib.mimic_step_occupancy.restype = ctypes.c_int
     return lib, {"path": lib_path, "seconds": seconds, "ptxas": report}
+
+
+def occupancy() -> dict:
+    """The kernel's widest block (the staged table and the envs' working
+    state in shared memory) and how many of them one SM holds
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) on the current card."""
+    lib, _ = build_library()
+    out = np.zeros(6, np.int32)
+    err = lib.mimic_step_occupancy(out.ctypes.data)
+    if err != 0:
+        raise RuntimeError(f"mimic_step occupancy query failed: cudaError {err}")
+    blocks, threads, smem, envs, lanes, staged = out.tolist()
+    return {"blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32,
+            "envs_per_sm": blocks * envs, "threads_per_block": threads,
+            "smem_per_block": smem, "staged_table_bytes": staged,
+            "work_bytes_per_env": (smem - staged) // envs, "envs_per_block": envs,
+            "lanes_per_env": lanes}
 
 
 def bind(lib) -> None:
@@ -192,25 +210,21 @@ class MimicStep:
         table = self._device_tables[key]
         B = qpos.shape[0]
         nb = spec.nbody
-        q_in = qpos.t().contiguous()
-        v_in = qvel.t().contiguous()
-        u_in = u.t().contiguous()
-        out_q = torch.empty((spec.nq, B), dtype=torch.float32, device=dev)
-        out_v = torch.empty((spec.nv, B), dtype=torch.float32, device=dev)
-        out_xp = torch.empty((3 * nb, B), dtype=torch.float32, device=dev)
-        out_xq = torch.empty((4 * nb, B), dtype=torch.float32, device=dev)
-        out_fall = torch.empty((B,), dtype=torch.float32, device=dev)
+        out = (torch.empty((B, spec.nq), dtype=torch.float32, device=dev),
+               torch.empty((B, spec.nv), dtype=torch.float32, device=dev),
+               torch.empty((B, nb, 3), dtype=torch.float32, device=dev),
+               torch.empty((B, nb, 4), dtype=torch.float32, device=dev),
+               torch.empty((B,), dtype=torch.float32, device=dev))
+        if B == 0:  # nothing to launch
+            return out
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mimic_step_launch(
-            table.data_ptr(), B, q_in.data_ptr(), v_in.data_ptr(), u_in.data_ptr(),
-            out_q.data_ptr(), out_v.data_ptr(), out_xp.data_ptr(), out_xq.data_ptr(),
-            out_fall.data_ptr(), THREADS_PER_BLOCK, stream)
+        with torch.cuda.device(dev):  # the launch shape is worked out for the current device
+            err = lib.mimic_step_launch(table.data_ptr(), B, qpos.data_ptr(), qvel.data_ptr(),
+                                        u.data_ptr(), *[t.data_ptr() for t in out], stream)
         if err != 0:
             raise RuntimeError(f"mimic_step launch failed: cudaError {err}")
         self.launches += 1
-        return (out_q.t().contiguous(), out_v.t().contiguous(),
-                out_xp.t().reshape(B, nb, 3).contiguous(),
-                out_xq.t().reshape(B, nb, 4).contiguous(), out_fall)
+        return out
 
 
 def build_mimic_step(

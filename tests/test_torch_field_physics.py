@@ -8,6 +8,8 @@ rounding: qpos 1e-6 and qvel 2e-4 after one substep (qvel carries the
 stiff contact and PD forces through the solve), FK 1e-5, fall exact.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -84,6 +86,27 @@ def test_substep_matches(specs, seed):
     np.testing.assert_allclose(_np(tv), _np(jv), atol=2e-4)
     np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
     assert sorted(jheld) == sorted(theld) and len(theld) == 104
+
+
+@pytest.mark.parametrize("self_mass", ["substep", "static"])
+def test_substep_matches_self_mass_modes(specs, self_mass):
+    """The self-contact-mass modes other than 'step': 'substep' solves the
+    exact two-body Delassus mass every substep, 'static' takes the
+    harmonic surrogate. The state has active self-contacts, so the two
+    modes differ in qvel well beyond the tolerance (at one substep
+    'substep' equals 'step', which solves at the entry substep)."""
+    js, ts = (dataclasses.replace(s, self_contact_mass=self_mass) for s in specs)
+    q, v, u = _state(humanoid_model(), 0)
+    jq, jv, jf, jheld = jfp.substep(js, _jrows(q), _jrows(v), _jrows(u))
+    tq, tv, tf, theld = tfp.substep(ts, _trows(q), _trows(v), _trows(u))
+    np.testing.assert_allclose(_np(tq), _np(jq), atol=1e-6)
+    np.testing.assert_allclose(_np(tv), _np(jv), atol=2e-4)
+    np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+    assert jheld == {} and theld == {}
+    other = "static" if self_mass == "substep" else "substep"
+    os_ = dataclasses.replace(specs[1], self_contact_mass=other)
+    _, sv, _, _ = tfp.substep(os_, _trows(q), _trows(v), _trows(u))
+    assert np.abs(_np(sv) - _np(tv)).max() > 1e-3
 
 
 def test_held_mass_substep(specs):
@@ -182,3 +205,45 @@ def test_policy_step_flop_count(specs):
     selects per substep inside jnp's jitted helpers."""
     js, ts = specs
     assert tfp.count_policy_step_flops(ts) == _jax_policy_step_flops(js)
+
+
+@pytest.mark.parametrize("self_mass", ["step", "substep", "static"])
+def test_needed_flop_count_attribution(specs, self_mass):
+    """The per-slot Delassus FLOPs that the data-dependent count takes off
+    are those the program spends: in 'step' mode the entry substep exceeds
+    a held-mass substep by exactly the self slots' masses; with every
+    contact touching the count is the straight-line one, with none it is
+    smaller."""
+    ts = dataclasses.replace(specs[1], self_contact_mass=self_mass)
+    n_factor, per_slot = tfp._delassus_flops(ts)
+    if self_mass == "step":
+        q, v, u = tfp._unit_state(ts)
+        (_, _, _, held), n_entry = tfp._counted(tfp.substep, ts, q, v, u)
+        n_rest = tfp._counted(tfp.substep, ts, q, v, u, held_self=held)[1]
+        assert n_entry - n_rest == sum(c for c, s in zip(per_slot, ts.slots) if s.body1 >= 0)
+    shape = (ts.n_substeps, 3, len(ts.slots))
+    straight = tfp.count_policy_step_flops(ts)
+    assert tfp.count_policy_step_flops(ts, torch.ones(shape, dtype=torch.bool)) == 3 * straight
+    none = tfp.count_policy_step_flops(ts, torch.zeros(shape, dtype=torch.bool))
+    assert none <= 3 * (straight - ts.n_substeps * n_factor)
+
+
+def test_contact_activity_matches_fall_flag(specs):
+    """contact_activity's touching contacts give the plain policy step's
+    fall flag exactly, and the FLOPs they need lie between the count with
+    no contact and the straight-line count."""
+    from pbrl_tpu_torch.ops.mimic_kernel import mimic_step_plain
+
+    ts = dataclasses.replace(specs[1], n_substeps=3)
+    m = humanoid_model()
+    q, v, u = (torch.from_numpy(a) for a in _state(m, 5, B=3))
+    q[2, 2] = 0.05  # root inside the floor: a fall
+    active = tfp.contact_activity(ts, q, v, u)
+    assert active.shape == (3, 3, len(ts.slots)) and active.dtype == torch.bool
+    fall_slots = torch.tensor([s.fall for s in ts.slots])
+    fall = (active & fall_slots).any(-1).any(0).float()
+    np.testing.assert_array_equal(fall.numpy(), mimic_step_plain(ts, q, v, u)[4].numpy())
+    assert fall[2] == 1.0
+    shape = (ts.n_substeps, 3, len(ts.slots))
+    none = tfp.count_policy_step_flops(ts, torch.zeros(shape, dtype=torch.bool))
+    assert none < tfp.count_policy_step_flops(ts, active) < 3 * tfp.count_policy_step_flops(ts)

@@ -16,6 +16,7 @@ runs where JAX is not installed (``pytest --noconftest -m gpu``).
 """
 
 import ctypes
+import dataclasses
 import shutil
 import subprocess
 
@@ -31,11 +32,15 @@ from pbrl_tpu_torch.ops import mimic_kernel
 ALLOWED = ("right_ankle", "left_ankle")
 
 
-def _humanoid_step(mode="pd", n_substeps=2):
+def _humanoid_step(mode="pd", n_substeps=2, self_mass="step"):
     kp, kd = generate_kp_kd_gains()
-    return mimic_kernel.build_mimic_step(humanoid_model(), kp=kp, kd=kd,
-                                         n_substeps=n_substeps, mode=mode,
-                                         fall_allowed_bodies=ALLOWED, torque_scale=2.0)
+    step, spec = mimic_kernel.build_mimic_step(humanoid_model(), kp=kp, kd=kd,
+                                               n_substeps=n_substeps, mode=mode,
+                                               fall_allowed_bodies=ALLOWED, torque_scale=2.0)
+    if self_mass == spec.self_contact_mass:
+        return step, spec
+    spec = dataclasses.replace(spec, self_contact_mass=self_mass)
+    return mimic_kernel.MimicStep(spec), spec
 
 
 def _humanoid_inputs(seed, B, mode):
@@ -96,7 +101,7 @@ def test_pack_spec_round_trips_humanoid():
     r = lambda name: fp.read_table(w, name)
     assert r("nq")[0] == 35 and r("nv")[0] == 34 and r("nu")[0] == 28
     assert r("nbody")[0] == 13 and r("nslot")[0] == 141 and r("npair")[0] == 310
-    assert r("nlimit")[0] == 28 and r("n_substeps")[0] == 2 and r("mode")[0] == 0
+    assert np.sum(r("dof_lim")[:34] >= 0) == 28 and r("n_substeps")[0] == 2 and r("mode")[0] == 0
     pairs = list(zip(r("pair_i")[:310].tolist(), r("pair_j")[:310].tolist()))
     assert pairs == spec.m_pairs
     assert r("body_parent")[:13].tolist() == [b.parent for b in spec.bodies]
@@ -128,6 +133,80 @@ def test_pack_spec_round_trips_humanoid():
     np.testing.assert_allclose(r("dof_extra_diag")[6], h * 1.0 + h * spec.kd[0], rtol=1e-7)
 
 
+def test_pack_spec_team_layout():
+    """The table entries that let an env's lanes share its work: bodies by
+    tree level (body 0 alone first), children in descending index, each
+    body's contact slots in slot order, the rounds in which lanes take the
+    slots (five rounds of 32 lanes, ten kinds' code paths in all, the 32
+    capsule-end and box-corner ground slots in the first),
+    dofs by depth, the factor's entries and steps by body level (each
+    entry's terms in the serial program's order), and each slot's
+    support-local ancestor positions."""
+    step, spec = _humanoid_step()
+    w = step.table
+    r = lambda name: fp.read_table(w, name)
+    nb, nv, ns = 13, 34, 141
+    parent = [b.parent for b in spec.bodies]
+    lvl_ptr, order = r("lvl_ptr")[:r("nlevel")[0] + 1], r("lvl_body")[:nb]
+    assert sorted(order.tolist()) == list(range(nb)) and order[0] == 0 and lvl_ptr[1] == 1
+    level = {b: l for l in range(len(lvl_ptr) - 1) for b in order[lvl_ptr[l]:lvl_ptr[l + 1]]}
+    assert all(level[b] == level[parent[b]] + 1 for b in range(1, nb))
+    cptr, child = r("child_ptr"), r("child")
+    for b in range(nb):
+        assert child[cptr[b]:cptr[b + 1]].tolist() == sorted(
+            (c for c in range(nb) if parent[c] == b), reverse=True)
+    sptr, bslot = r("body_slot_ptr"), r("body_slot")
+    for b in range(nb):
+        es = bslot[sptr[b]:sptr[b + 1]].tolist()
+        assert es == sorted(es)
+        assert es == sorted([2 * i for i, s in enumerate(spec.slots) if s.body2 == b]
+                            + [2 * i + 1 for i, s in enumerate(spec.slots) if s.body1 == b])
+    anc = fp._anc_lists(spec)
+    dep = r("dep_dof")[:nv].tolist()
+    assert sorted(dep) == list(range(nv))
+    assert [len(anc[i]) for i in dep] == sorted(len(a) for a in anc)
+    pairs = spec.m_pairs
+    # the factor by body level: every (k, i) once, with the terms of the
+    # descendants c of k in descending order, split into the dofs of
+    # descendant bodies (one pass) and the body's own later dofs (steps)
+    fa_ptr, fa_ent, fa_optr, fa_op = r("fa_ptr"), r("fa_ent"), r("fa_op_ptr"), r("fa_op")
+    fl_ptr, piv_ptr, piv = r("fl_step_ptr"), r("fb_piv_ptr"), r("fb_piv")
+    upd_ptr, upd = r("fb_upd_ptr"), r("fb_upd")
+    terms = {}
+    for lv in range(len(lvl_ptr) - 1):
+        for e in range(fa_ptr[lv], fa_ptr[lv + 1]):
+            k, i = pairs[fa_ent[e] & 1023]
+            assert (fa_ent[e] >> 10) & 63 == k and (fa_ent[e] >> 16) == (i == k)
+            assert level[spec.dof_body[k]] == lv
+            terms[(k, i)] = [(pairs[o & 1023], pairs[o >> 10])
+                             for o in fa_op[fa_optr[e]:fa_optr[e + 1]]]
+        for st in range(fl_ptr[lv], fl_ptr[lv + 1]):
+            for t in range(piv_ptr[st], piv_ptr[st + 1]):
+                k = piv[t] & 255
+                assert pairs[piv[t] >> 8] == (k, k)
+            for code in upd[upd_ptr[st]:upd_ptr[st + 1]]:
+                tgt, a_, b_ = pairs[code & 1023], pairs[(code >> 10) & 1023], pairs[code >> 20]
+                terms[tgt].append((b_, a_))
+    assert sorted(terms) == sorted(pairs)
+    for (k, i), got in terms.items():
+        want = [((c, i), (c, k)) for c in range(nv - 1, k, -1) if k in anc[c]]
+        assert got == want, (k, i)
+    order = r("slot_order")[:r("nslot_order")[0]].tolist()
+    assert len(order) % 32 == 0 and sorted(si for si in order if si >= 0) == list(range(ns))
+    rounds = [[fp.SLOT_KINDS[r("slot_kind")[si]] for si in order[c:c + 32] if si >= 0]
+              for c in range(0, len(order), 32)]
+    assert len(rounds) == 5 and sum(len(set(kinds)) for kinds in rounds) == 10
+    assert sorted(rounds[0]) == ["plane_capend"] * 16 + ["plane_corner"] * 16
+    pos, end = r("dl_pos").view(np.uint8), r("slot_dl_end")
+    start, count = r("slot_supp_start"), r("slot_supp_count")
+    for si in range(ns):
+        dofs = r("supp_dof")[start[si]:start[si] + count[si]].tolist()
+        n_ops = sum(len(anc[i]) for i in dofs)
+        got = pos[end[si] - n_ops:end[si]].tolist()
+        assert [dofs[p] for p in got] == [a for i in dofs for a in anc[i]]
+    assert max(count[:ns]) <= fp.table_limits()["MAXSL"]
+
+
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
     gxx = shutil.which("g++")
@@ -142,22 +221,34 @@ def host_lib(tmp_path_factory):
 
 
 def _host_step(lib, step, q, v, u):
+    """The kernel's arithmetic on the host: (B, K) rows in and out, as the
+    wrapper hands them to the card."""
     spec = step.spec
     B, nb = q.shape[0], spec.nbody
-    ins = [np.ascontiguousarray(x.numpy().T) for x in (q, v, u)]
-    outs = [np.zeros((k, B), np.float32) for k in (spec.nq, spec.nv, 3 * nb, 4 * nb, 1)]
+    ins = [np.ascontiguousarray(x.numpy()) for x in (q, v, u)]
+    outs = [np.zeros(shape, np.float32)
+            for shape in ((B, spec.nq), (B, spec.nv), (B, nb, 3), (B, nb, 4), (B,))]
     ptr = lambda a: ctypes.c_void_p(a.ctypes.data)
     lib.mimic_step_host(ptr(step.table), B, *[ptr(a) for a in ins + outs])
-    return (outs[0].T, outs[1].T, outs[2].T.reshape(B, nb, 3), outs[3].T.reshape(B, nb, 4),
-            outs[4][0])
+    return outs
 
 
-@pytest.mark.parametrize("mode", ["pd", "torque"])
-def test_cuda_source_on_host_matches_plain(host_lib, mode):
+@pytest.mark.parametrize("mode, self_mass", [
+    pytest.param("pd", "step", id="pd"),
+    pytest.param("torque", "step", id="torque"),
+    pytest.param("pd", "substep", id="pd-substep"),
+    pytest.param("pd", "static", id="pd-static"),
+])
+def test_cuda_source_on_host_matches_plain(host_lib, mode, self_mass):
     """Two substeps of the humanoid: the table-driven source (push-form
     triangular solves, its own summation order) and the plain version
-    agree to float32 rounding: qpos/FK 1e-6, qvel 1e-4, fall exact."""
-    step, _ = _humanoid_step(mode)
+    agree to float32 rounding: qpos/FK 1e-6, qvel 1e-4, fall exact. The
+    inputs have active self-contacts, so each self-contact-mass mode
+    ('step' holds the entry substep's Delassus mass, 'substep' solves it
+    every substep, 'static' takes the harmonic surrogate) takes its own
+    branch: 'substep' and 'static' move qvel by about 1e-3 and 0.25 from
+    'step'."""
+    step, _ = _humanoid_step(mode, self_mass=self_mass)
     q, v, u = _humanoid_inputs(1, 3, mode)
     got = _host_step(host_lib, step, q, v, u)
     want = [t.numpy() for t in step(q, v, u)]
@@ -179,18 +270,24 @@ def test_cuda_source_on_host_sphere(host_lib):
 @pytest.mark.gpu
 def test_kernel_matches_plain_on_card():
     """The CUDA kernel against the plain version on the card (one policy
-    step of 64 humanoid envs, both modes): qpos and FK 1e-5, qvel 1e-2
-    (stiff contacts amplify rounding; chip_smoke.py measured a max of
-    1.1e-3 over 2 steps of 256 envs), fall exact."""
+    step of 64, 33 and 1 humanoid envs, both modes): qpos and FK 1e-5,
+    qvel 1e-2 (stiff contacts amplify rounding; chip_smoke.py measured a
+    max of 1.1e-3 over 2 steps of 256 envs), fall exact. Two launches on
+    the same inputs give the same bits: a race between the lanes of an
+    env would not."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
     for mode in ("pd", "torque"):
         step, spec = _humanoid_step(mode, n_substeps=8)
-        q, v, u = (t.to(dev) for t in _humanoid_inputs(2, 64, mode))
-        got = step(q, v, u)
-        assert step.launches == 1
-        want = mimic_kernel.mimic_step_plain(spec, q, v, u)
-        torch.cuda.synchronize()
-        for a, b, tol in zip(got, want, (1e-5, 1e-2, 1e-5, 1e-5, 0.0)):
-            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=tol)
+        for B in (64, 33, 1):
+            q, v, u = (t.to(dev) for t in _humanoid_inputs(2, B, mode))
+            got = step(q, v, u)
+            again = step(q, v, u)
+            want = mimic_kernel.mimic_step_plain(spec, q, v, u)
+            torch.cuda.synchronize()
+            for a, b, tol in zip(got, want, (1e-5, 1e-2, 1e-5, 1e-5, 0.0)):
+                assert tuple(a.shape) == tuple(b.shape)
+                np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=tol)
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), (mode, B)
+        assert step.launches == 6

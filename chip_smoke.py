@@ -23,7 +23,8 @@ with the seconds elapsed:
    1 env (one policy step), and the sphere scene's free fall (5 envs,
    3 substeps); then the same checks on one policy step at the eval's
    shape (4096 envs, the policy's actions), and two launches on those
-   inputs that must agree bit for bit (a race between lanes would not);
+   inputs that must agree bit for bit (a race between lanes would not), as
+   must 7 of those envs launched alone;
 4. eval: the exported walk policy, deterministic evaluation at 4096 envs
    for 300 policy steps through the kernel, with the kernel launch count
    of that run (300), its results against the recorded JAX eval
@@ -33,13 +34,31 @@ with the seconds elapsed:
    these inputs need: a contact's Delassus mass only where it touches,
    from the plain program's contact activity), and a ``torch.profiler`` trace
    of 5 eval steps: the top 10 device operations, the device-busy share
-   of the window and the kernel launches per env step;
-5. one JSON line describing the kernel, the card's ``nvidia-smi`` line, and
+   of the window and the kernel launches per env step; then the envs that
+   ended before the last step in that eval (start time, step, and whether a
+   fall or the NaN quarantine ended them), recorded during it;
+5. train: PPO through ``ppo.train`` with the walk run's ``TrainConfig``
+   (2048 envs x unroll 16, 1024-512 MLPs) from a seeded fresh init for
+   TRAIN_ITERS iterations, with every metric finite in every iteration and
+   TRAIN_ITERS x 16 kernel launches; env-steps/s with the learner
+   included, the rollout/learn split. Then the kernel against its plain
+   version (phase 3's bounds, 2 policy steps) on FALL_ENVS states of that
+   policy's rollout taken as each env falls and on the rollout's final
+   states at the training launches' shape (2048 envs), its time on both at
+   2048 envs, their touching contacts and the bound those states need. Then a
+   fine-tune: the walk run's exported learner state
+   (``assets/walk_train_state.npz``) imported as a checkpoint and resumed
+   for FINETUNE_ITERS iterations through ``cli train`` on its default
+   device, whose run config must be the walk run's, whose checkpoints must
+   continue at 15258 + FINETUNE_ITERS with Adam's count, and whose policy
+   must pass phase 4's eval bounds at 4096 envs x 300 steps;
+6. one JSON line describing the kernel, the card's ``nvidia-smi`` line, and
    last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero without the last line.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -58,6 +77,10 @@ JAX_EVAL = {"eval_reward": 0.833315908908844, "eval_episode_length": 300.0,
 THREAD_PER_ENV_EVAL_S = "10.30-13.34 s"  # the earlier one-thread-per-env kernel (PERF.md)
 TIME_ENVS = (1024, 4096, 16384)
 PROFILE_STEPS = 5
+TRAIN_ITERS = 40     # from-scratch PPO iterations (each 2048 envs x 16 steps)
+FALL_ENVS = 256      # training-rollout states taken as envs fall
+FALL_STEPS = 240     # the most policy steps to wait for FALL_ENVS falls
+FINETUNE_ITERS = 4   # iterations resumed from the exported walk learner state
 
 
 def log(phase, msg=""):
@@ -200,6 +223,240 @@ def profile_eval(env, policy, stats, gen):
             "top": [(name, us / 1e3 / PROFILE_STEPS) for name, us in top]}
 
 
+def needed(sp, q, v, u):
+    """What one policy step from these inputs needs: FLOP per env (a
+    contact's Delassus mass only where it touches, from the plain program's
+    contact activity) and the ground and self contacts touching per env and
+    substep."""
+    import torch
+
+    from pbrl_tpu_torch.ops import field_physics as fp
+
+    active = fp.contact_activity(sp, q, v, u)
+    ground = torch.tensor([s.body1 < 0 for s in sp.slots], device=active.device)
+    per_sub = active.shape[0] * q.shape[0]
+    return {"flop_per_env": fp.count_policy_step_flops(sp, active) / q.shape[0],
+            "ground": float((active & ground).sum()) / per_sub,
+            "self": float((active & ~ground).sum()) / per_sub}
+
+
+def bound(sp, flop_per_env, B):
+    """The least time (ms) the card could take for one launch at B envs,
+    and what bounds it: FLOPs over the f32 peak, or each input read and
+    each output written once over the memory rate."""
+    nbytes = 4 * B * (2 * (sp.nq + sp.nv) + sp.nu + 7 * sp.nbody + 1)
+    t_ops, t_bytes = flop_per_env * B / H100_F32_FLOPS * 1e3, nbytes / H100_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+@contextlib.contextmanager
+def watch_endings(env):
+    """Within the block, record what each ``env.step`` ends: the start
+    times, each step's done and fall flags, and whether the kernel's raw
+    outputs were finite (the env's NaN quarantine turns a non-finite state
+    into a fall). A few small device operations per step; no copy to the
+    host."""
+    kstep, rec = env._kstep, {"t0": None, "done": [], "fall": [], "bad": []}
+    step = env.step
+
+    def spy(q, v, u):
+        out = kstep(q, v, u)
+        rec["bad"].append(~(out[0].isfinite().all(1) & out[1].isfinite().all(1)))
+        return out
+
+    def watched(state, action):
+        if rec["t0"] is None:
+            rec["t0"] = state.episode_start
+        out = step(state, action)
+        rec["done"].append(out.done > 0)
+        rec["fall"].append(out.metrics["fall"] > 0)
+        return out
+
+    env._kstep, env.step = spy, watched
+    try:
+        yield rec
+    finally:
+        env._kstep = kstep
+        del env.step
+
+
+def endings(rec):
+    """From ``watch_endings``' record: each env that ended before the last
+    step, with its start time, its live steps (the step it ended at, as
+    the eval counts them) and what ended it."""
+    import torch
+
+    done, fall, bad = (torch.stack(rec[k]) for k in ("done", "fall", "bad"))
+    first = torch.argmax(done.to(torch.int8), dim=0)
+    out = []
+    for j in torch.nonzero(done.any(dim=0)).flatten().tolist():
+        i = int(first[j])
+        cause = "nonfinite" if bool(bad[i, j]) else "fall" if bool(fall[i, j]) else "other"
+        t0 = float(rec["t0"][j])
+        out.append({"env": j, "t0": t0, "t0_hex": t0.hex(), "live_steps": i, "cause": cause})
+    return out
+
+
+def train_phase(dev, smi, model, clip):
+    """Phase 5: from-scratch PPO, the kernel on training states, and a
+    fine-tune of the walk run's exported learner state (module docstring).
+    Returns the numbers the report line needs."""
+    import dataclasses
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pbrl_tpu_torch import cli
+    from pbrl_tpu_torch.envs import EnvConfig, MimicVecEnv
+    from pbrl_tpu_torch.ops import mimic_kernel
+    from pbrl_tpu_torch.train import (checkpoint, evaluate, networks, optim, ppo,
+                                      running_stats)
+    from pbrl_tpu_torch.utils.configio import dict_to_config
+
+    _, _, run = checkpoint.load_policy(checkpoint.bundled_policy("walk"), device=dev)
+    walk_cfg = dict_to_config(ppo.TrainConfig, run["train_config"])
+    env = MimicVecEnv(model, clip, dict_to_config(EnvConfig, run["env_config"]), device=dev)
+    cfg = dataclasses.replace(walk_cfg, total_env_steps=TRAIN_ITERS * walk_cfg.steps_per_iteration)
+    check(cfg.num_envs == 2048 and cfg.unroll_length == 16 and cfg.hidden == (1024, 512)
+          and cfg.num_iterations == TRAIN_ITERS, f"not the walk run's config: {cfg}")
+    log("train", f"from scratch: {TRAIN_ITERS} iterations of {cfg.num_envs} envs x "
+        f"{cfg.unroll_length} steps, {cfg.update_epochs} epochs x {cfg.num_minibatches} "
+        f"minibatches, hidden {cfg.hidden}, lr {cfg.learning_rate} decayed over "
+        f"{cfg.total_updates} updates | {smi}")
+    keys = ("reward_mean", "episode_done_frac", "loss_policy", "loss_value", "entropy",
+            "kl_approx", "rollout_s", "learn_s")
+
+    def progress(it, e):
+        print(f"[smoke]   it {it:3d} " + " ".join(f"{k}={e[k]:.5g}" for k in keys), flush=True)
+
+    ks = env._kstep
+    torch.cuda.synchronize()
+    ks.launches = 0
+    t = time.perf_counter()
+    ts, history = ppo.train(env, cfg, progress_fn=progress, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    launches = ks.launches
+    bad = [(i, k) for i, h in enumerate(history) for k, v in h.items() if not np.isfinite(v)]
+    check(not bad, f"non-finite training metrics (iteration, key): {bad[:10]}")
+    check(launches == TRAIN_ITERS * cfg.unroll_length,
+          f"training kernel launches {launches} != {TRAIN_ITERS * cfg.unroll_length}")
+    later = history[1:]
+    roll = float(np.median([h["rollout_s"] for h in later]))
+    learn = float(np.median([h["learn_s"] for h in later]))
+    steady = cfg.steps_per_iteration * len(later) / sum(h["rollout_s"] + h["learn_s"]
+                                                       for h in later)
+    log("train", f"{train_s:.2f}s, kernel launches {launches}; env-steps/s with the learner: "
+        f"{history[-1]['sps']:.1f} over the run, {steady:.1f} after the first iteration; per "
+        f"iteration (median of iterations 2..{TRAIN_ITERS}): rollout {roll:.4f}s "
+        f"({roll / cfg.unroll_length * 1e3:.3f} ms/step), learn {learn:.4f}s | {smi}")
+    low = min(range(len(history)), key=lambda i: history[i]["reward_mean"])
+    log("train", "reward_mean " + " -> ".join(
+        f"{history[i]['reward_mean']:.4f} (it {i})" for i in (0, low, len(history) - 1))
+        + f"; episode_done_frac {history[0]['episode_done_frac']:.4f} -> "
+        f"{history[-1]['episode_done_frac']:.4f}")
+
+    # the kernel on this policy's rollout states, taken as each env falls
+    gen = torch.Generator(device=dev).manual_seed(2)
+    state = ts.env_state
+    taken = torch.zeros(cfg.num_envs, dtype=torch.bool, device=dev)
+    falls = ([], [], [], [])  # qpos, qvel, time, obs
+    with torch.no_grad():
+        for i in range(FALL_STEPS):
+            mean, log_std = ts.policy(running_stats.normalize(ts.obs_stats, state.obs))
+            state = env.step(state, networks.sample_action(mean, log_std, gen))
+            new = (state.metrics["fall"] > 0) & ~taken
+            taken |= new
+            for got, x in zip(falls, (state.qpos, state.qvel, state.time, state.obs)):
+                got.append(x[new])
+            if int(taken.sum()) >= FALL_ENVS:
+                break
+        q, v, tf, obs = (torch.cat(x)[:FALL_ENVS].contiguous() for x in falls)
+        mean, _ = ts.policy(running_stats.normalize(ts.obs_stats, obs))
+        u = env._target(q, tf, mean).contiguous()
+    check(q.shape[0] == FALL_ENVS, f"only {q.shape[0]} envs fell in {FALL_STEPS} steps")
+    sp = env._kspec
+    plain = lambda a, b, c: mimic_kernel.mimic_step_plain(sp, a, b, c)
+    r = compare(ks, plain, q, v, u, steps=2)
+    log("check fallen", f"{q.shape[0]} training states taken as envs fell (within {i + 1} "
+        f"steps): {fmt(r)}")
+    check_errors("fallen", r)
+    fall_need = needed(sp, q, v, u)
+    st = ts.env_state
+    with torch.no_grad():
+        mean, _ = ts.policy(running_stats.normalize(ts.obs_stats, st.obs))
+        u_run = env._target(st.qpos, st.time, mean).contiguous()
+    r_run = compare(ks, plain, st.qpos, st.qvel, u_run, steps=2)
+    log("check train-shape", f"{cfg.num_envs} envs, the rollout's final states (the training "
+        f"launches' shape), 2 steps: {fmt(r_run)}")
+    check_errors("train-shape", r_run)
+    run_need = needed(sp, *(x[:FALL_ENVS] for x in (st.qpos, st.qvel, u_run)))
+    kernel_ms = time_launch(ks, st.qpos, st.qvel, u_run)
+    rep = -(-cfg.num_envs // FALL_ENVS)
+    fq, fv, fu = (x.repeat(rep, 1)[:cfg.num_envs].contiguous() for x in (q, v, u))
+    fall_ms = time_launch(ks, fq, fv, fu)
+    bound_ms, bound_by = bound(sp, run_need["flop_per_env"], cfg.num_envs)
+    fall_bound, fall_by = bound(sp, fall_need["flop_per_env"], cfg.num_envs)
+    for name, need, ms, (b_ms, b_by) in (("rollout", run_need, kernel_ms, (bound_ms, bound_by)),
+                                         ("fallen", fall_need, fall_ms, (fall_bound, fall_by))):
+        log("train kernel", f"{name} states at B={cfg.num_envs}: {ms:.4f} ms/launch; over "
+            f"{FALL_ENVS} of them, touching per env and substep {need['ground']:.3f} ground, "
+            f"{need['self']:.3f} self "
+            f"contacts; {need['flop_per_env']:.1f} FLOP/env/step -> bound {b_ms:.5f} ms "
+            f"({b_by}; at B={EVAL_ENVS}: {bound(sp, need['flop_per_env'], EVAL_ENVS)[0]:.5f} "
+            f"ms) | {smi}")
+
+    # fine-tune from the walk run's learner state, through the command line
+    ft_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_finetune")
+    shutil.rmtree(ft_dir, ignore_errors=True)
+    step0 = checkpoint.import_train_state(ft_dir, checkpoint.bundled_train_state("walk"),
+                                          checkpoint.bundled_policy("walk"))
+    count0 = checkpoint.restore(ft_dir)["opt"]["count"]
+    ft_steps = FINETUNE_ITERS * walk_cfg.steps_per_iteration
+    ft_cfg = dataclasses.replace(walk_cfg, total_env_steps=ft_steps)
+    log("finetune", f"imported step {step0}, Adam count {count0} past this run's "
+        f"{ft_cfg.total_updates} updates: lr {ft_cfg.learning_rate} -> "
+        f"{optim.Adam(ft_cfg.learning_rate, 0.0, ft_cfg.total_updates).lr(count0):.3g} "
+        f"(the 1% floor)")
+    t = time.perf_counter()
+    cli.main(["train", "--clip", "walk", "--checkpoint-dir", ft_dir,
+              "--total-steps", str(ft_steps), "--lr", str(walk_cfg.learning_rate),
+              "--train-set", f"entropy_cost={walk_cfg.entropy_cost}"])
+    torch.cuda.synchronize()
+    ft_s = time.perf_counter() - t
+    ft_run = checkpoint.load_run_config(ft_dir)
+    check(dict_to_config(ppo.TrainConfig, ft_run["train_config"]) == ft_cfg
+          and dict_to_config(EnvConfig, ft_run["env_config"]) == env.config,
+          f"the command line did not run the walk run's config: {ft_run}")
+    last = checkpoint.latest_step(ft_dir)
+    check(last == step0 + FINETUNE_ITERS, f"fine-tune checkpoint {last} != {step0} + "
+          f"{FINETUNE_ITERS}")
+    payload = checkpoint.restore(ft_dir)
+    check(payload["opt"]["count"] == count0 + FINETUNE_ITERS * ft_cfg.update_epochs
+          * ft_cfg.num_minibatches, "the fine-tune did not continue Adam's count")
+    check(all(bool(v.isfinite().all()) for net in ("policy", "value")
+              for v in payload[net].values()), "non-finite fine-tuned params")
+    policy, stats = checkpoint.load_policy_from_dir(ft_dir, device=dev)
+    eval_env = MimicVecEnv(model, clip, cli._env_config(ft_run), device=dev)
+    t = time.perf_counter()
+    metrics = {k: float(v) for k, v in evaluate(
+        eval_env, policy, stats, num_envs=EVAL_ENVS, num_steps=EVAL_STEPS,
+        generator=torch.Generator(device=dev).manual_seed(0)).items()}
+    eval_s = time.perf_counter() - t
+    log("finetune", f"{FINETUNE_ITERS} iterations in {ft_s:.2f}s, checkpoints "
+        f"{checkpoint._steps(ft_dir)}; eval {EVAL_ENVS} x {EVAL_STEPS} in {eval_s:.2f}s: "
+        + json.dumps(metrics))
+    check(metrics["eval_reward"] >= MIN_EVAL_REWARD,
+          f"fine-tuned eval_reward {metrics['eval_reward']} < {MIN_EVAL_REWARD}")
+    check(metrics["eval_episode_length"] >= MIN_EVAL_LENGTH,
+          f"fine-tuned eval_episode_length {metrics['eval_episode_length']} < {MIN_EVAL_LENGTH}")
+    shutil.rmtree(ft_dir, ignore_errors=True)
+    return {"launches": launches, "kernel_ms": kernel_ms, "bound_ms": bound_ms,
+            "max_abs_err": max(r_run[k] for k in ("dq", "dv_max", "dxpos", "dxquat", "dfall"))}
+
+
 def fmt(d):
     return " ".join(f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}" for k, v in d.items())
 
@@ -321,6 +578,15 @@ def main():
     same = all(torch.equal(a, b) for a, b in zip(out_k, again))
     log("determinism", f"two launches at B={EVAL_ENVS} bit-equal: {same}")
     check(same, "two launches on the same inputs differ: a race between lanes")
+    part = ks(*(x[1000:1007].contiguous() for x in (st.qpos, st.qvel, u)))
+    alone = all(torch.equal(a, b[1000:1007]) for a, b in zip(part, out_k))
+    log("determinism", f"7 of those envs launched alone give the same bits: {alone}")
+    check(alone, "an env's result depends on the batch it is launched in")
+    with torch.no_grad():
+        m_all, _ = policy(running_stats.normalize(stats, st.obs))
+        m_part, _ = policy(running_stats.normalize(stats, st.obs[1000:1007]))
+    log("determinism", "their policy means alone and in the batch differ by "
+        f"{float((m_part - m_all[1000:1007]).abs().max()):.3e} (the GEMMs' rounding)")
     times = {}
     for n in TIME_ENVS:
         rep = -(-n // EVAL_ENVS)
@@ -339,26 +605,21 @@ def main():
         f"| max|kernel-plain|={max_err:.3e} {fmt(r)} | {smi}")
     check_errors("main-shape", r)
     # the bound counts the Delassus masses only where these inputs' contacts touch
-    active = fp.contact_activity(sp, st.qpos, st.qvel, u)
-    flops = fp.count_policy_step_flops(sp, active)
+    need = needed(sp, st.qpos, st.qvel, u)
     straight = fp.count_policy_step_flops(sp)
-    nbytes = 4 * EVAL_ENVS * (2 * (sp.nq + sp.nv) + sp.nu + 7 * sp.nbody + 1)
-    t_ops, t_bytes = flops / H100_F32_FLOPS * 1e3, nbytes / H100_BYTES * 1e3
-    bound_ms, bound_by = max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-    ground = torch.tensor([s.body1 < 0 for s in sp.slots], device=active.device)
-    per_sub = active.shape[0] * EVAL_ENVS
-    log("bound", f"{flops / EVAL_ENVS:.1f} FLOP/env/step for these inputs (straight-line "
-        f"{straight}; touching per env and substep: {float((active & ground).sum()) / per_sub:.3f} "
-        f"ground, {float((active & ~ground).sum()) / per_sub:.3f} self contacts), {flops:.4e} "
-        f"FLOP, {nbytes} B -> {bound_ms:.5f} ms ({bound_by}; straight-line "
-        f"{straight * EVAL_ENVS / H100_F32_FLOPS * 1e3:.5f} ms)")
+    bound_ms, bound_by = bound(sp, need["flop_per_env"], EVAL_ENVS)
+    log("bound", f"{need['flop_per_env']:.1f} FLOP/env/step for these inputs (straight-line "
+        f"{straight}; touching per env and substep: {need['ground']:.3f} ground, "
+        f"{need['self']:.3f} self contacts) -> {bound_ms:.5f} ms at B={EVAL_ENVS} "
+        f"({bound_by}; straight-line {bound(sp, straight, EVAL_ENVS)[0]:.5f} ms)")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     torch.cuda.synchronize()
     ks.launches = 0
     t = time.perf_counter()
-    metrics = evaluate(env, policy, stats, num_envs=EVAL_ENVS, num_steps=EVAL_STEPS,
-                       generator=gen)
+    with watch_endings(env) as rec:
+        metrics = evaluate(env, policy, stats, num_envs=EVAL_ENVS, num_steps=EVAL_STEPS,
+                           generator=gen)
     metrics = {k: float(v) for k, v in metrics.items()}
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t
@@ -384,15 +645,28 @@ def main():
             f"kernels and {prof['copies_per_step']:.1f} copies per step")
         for name, ms in prof["top"]:
             print(f"[smoke]   {ms:9.4f} ms/step  {name[:110]}", flush=True)
+    ended = endings(rec)
+    lost = sum(EVAL_STEPS - e["live_steps"] for e in ended)
+    log("eval ends", f"{len(ended)} of {EVAL_ENVS} envs end before step {EVAL_STEPS}, "
+        f"{lost} env-steps lost (mean length {EVAL_STEPS - lost / EVAL_ENVS:.4f}); by cause: "
+        + json.dumps({c: sum(e["cause"] == c for e in ended)
+                      for c in ("fall", "nonfinite", "other")}))
+    print("[smoke]   early: " + json.dumps(ended), flush=True)
+    check(abs((EVAL_STEPS - lost / EVAL_ENVS) - metrics["eval_episode_length"]) < 1e-3,
+          "the recorded endings do not give the eval's mean length")
 
-    # 5. report
+    # 5. train
+    tr = train_phase(dev, smi, model, clip)
+
+    # 6. report
     print(json.dumps({"kernels": [{
         "name": "mimic_step", "route": "cuda",
         "source": "pbrl_tpu_torch/csrc/mimic_step.cu",
         "replaces": "pbrl_tpu/ops/mimic_kernel.py:144",
         "launches": launches, "max_abs_err": max_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None,
+        "library_ms": None, "train_launches": tr["launches"], "train_ms": tr["kernel_ms"],
+        "train_bound_ms": tr["bound_ms"], "train_max_abs_err": tr["max_abs_err"],
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -260,11 +260,13 @@ class MimicVecEnv:
         return state.replace(qpos=qpos, qvel=qvel, time=t, obs=obs, reward=reward,
                              done=done, metrics=metrics)
 
-    def auto_reset(self, state: VecState, generator: Optional[torch.Generator] = None
-                   ) -> VecState:
+    def auto_reset(self, state: VecState, generator: Optional[torch.Generator] = None,
+                   t0: Optional[torch.Tensor] = None) -> VecState:
         """Re-initialise envs where done=1 (keeps the finished step's
-        reward, done and metrics)."""
-        fresh = self.reset(state.done.shape[0], generator)
+        reward, done and metrics). Fresh states are drawn for the whole
+        batch, as :meth:`reset` draws them (start times from ``t0`` when
+        given)."""
+        fresh = self.reset(state.done.shape[0], generator, t0=t0)
         d = state.done.to(torch.bool)
 
         def sel(a, b):

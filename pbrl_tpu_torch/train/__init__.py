@@ -1,5 +1,5 @@
-"""Training: networks, obs normalisation, evaluation and carried-over
-weights (PPO training comes in a later slice)."""
+"""Training: networks, obs normalisation, the optimiser, PPO, evaluation
+and checkpoints."""
 
-from pbrl_tpu_torch.train import checkpoint, networks, ppo, running_stats  # noqa: F401
-from pbrl_tpu_torch.train.ppo import evaluate  # noqa: F401
+from pbrl_tpu_torch.train import checkpoint, networks, optim, ppo, running_stats  # noqa: F401
+from pbrl_tpu_torch.train.ppo import TrainConfig, compute_gae, evaluate, train  # noqa: F401

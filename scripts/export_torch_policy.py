@@ -1,14 +1,22 @@
 """Export a pbrl_tpu walk checkpoint for the PyTorch port.
 
 Restores an Orbax checkpoint with the JAX stack (the only place outside
-the tests where the port's data touches ``jax``/``orbax``) and writes one
-``.npz`` that ``pbrl_tpu_torch.train.checkpoint.load_policy`` reads with
-numpy alone: the policy params in float32 under flax's names, the clamped
-``log_std``, the observation statistics and the run configuration. The
-value network is not exported: evaluation does not use it.
+the tests where the port's data touches ``jax``/``orbax``) and writes two
+``.npz`` files that ``pbrl_tpu_torch.train.checkpoint`` reads with numpy
+alone:
+
+* ``--out`` (``load_policy``): the policy params in float32 under flax's
+  names, the clamped ``log_std``, the observation statistics and the run
+  configuration; all that evaluation needs.
+* ``--train-state-out`` (``import_train_state``): the rest of the learner
+  state, so that a fine-tune resumes as pbrl_tpu's resume would: the value
+  params, the unclamped ``log_std``, Adam's count, mu and nu of both nets,
+  the observation statistics, ``env_steps``, the checkpoint's step and the
+  run configuration.
 
     JAX_PLATFORMS=cpu python scripts/export_torch_policy.py \
-        --checkpoint-dir ckpts/walk --out pbrl_tpu_torch/assets/walk_policy.npz
+        --checkpoint-dir ckpts/walk --out pbrl_tpu_torch/assets/walk_policy.npz \
+        --train-state-out pbrl_tpu_torch/assets/walk_train_state.npz
 """
 
 from __future__ import annotations
@@ -33,10 +41,18 @@ def flatten(tree, prefix=""):
     return out
 
 
+def _save(path, arrays):
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **arrays)
+    return {"out": path, "bytes": os.path.getsize(path),
+            "arrays": {k: list(v.shape) for k, v in arrays.items()}}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--checkpoint-dir", default="ckpts/walk")
     ap.add_argument("--out", default="pbrl_tpu_torch/assets/walk_policy.npz")
+    ap.add_argument("--train-state-out", default="pbrl_tpu_torch/assets/walk_train_state.npz")
     args = ap.parse_args(argv)
 
     import jax
@@ -45,19 +61,39 @@ def main(argv=None):
     from pbrl_tpu.train import checkpoint
     from pbrl_tpu.train.networks import PolicyNetwork
 
-    payload = checkpoint.restore(args.checkpoint_dir)
-    run = checkpoint.load_run_config(args.checkpoint_dir)
+    step = checkpoint.latest_step(args.checkpoint_dir)
+    payload = checkpoint.restore(args.checkpoint_dir, step)
+    run = json.dumps(checkpoint.load_run_config(args.checkpoint_dir))
+    stats = {f"obs_stats/{k}": np.asarray(payload["obs_stats"][k], np.float32)
+             for k in ("count", "mean", "m2")}
+
     policy = flatten(payload["params"]["policy"]["params"])
+    raw_log_std = policy["log_std"]
     lo, hi = PolicyNetwork.min_log_std, PolicyNetwork.max_log_std
-    policy["log_std"] = np.clip(policy["log_std"], lo, hi).astype(np.float32)
+    policy["log_std"] = np.clip(raw_log_std, lo, hi).astype(np.float32)
     arrays = {f"policy/{k}": v for k, v in policy.items()}
-    for k in ("count", "mean", "m2"):
-        arrays[f"obs_stats/{k}"] = np.asarray(payload["obs_stats"][k], np.float32)
-    arrays["run_config"] = np.asarray(json.dumps(run))
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    np.savez(args.out, **arrays)
-    print(json.dumps({"out": args.out, "bytes": os.path.getsize(args.out),
-                      "arrays": {k: list(v.shape) for k, v in arrays.items()}}))
+    arrays.update(stats)
+    arrays["run_config"] = np.asarray(run)
+    reports = [_save(args.out, arrays)]
+
+    # optax.chain(clip_by_global_norm, adam(schedule)): (EmptyState,
+    # (ScaleByAdamState(count, mu, nu), ScaleByScheduleState(count)))
+    adam, sched = payload["opt_state"][1]
+    if int(adam["count"]) != int(sched["count"]):
+        raise ValueError("the Adam and schedule counts differ")
+    train = {f"value/{k}": v for k, v in flatten(payload["params"]["value"]["params"]).items()}
+    train["policy/log_std"] = raw_log_std
+    train["opt/count"] = np.asarray(adam["count"], np.int64)
+    for which in ("mu", "nu"):
+        for net in ("policy", "value"):
+            for k, v in flatten(adam[which][net]["params"]).items():
+                train[f"opt/{which}/{net}/{k}"] = v
+    train.update(stats)
+    train["env_steps"] = np.asarray(payload["env_steps"], np.int64)
+    train["step"] = np.asarray(step, np.int64)
+    train["run_config"] = np.asarray(run)
+    reports.append(_save(args.train_state_out, train))
+    print(json.dumps(reports))
     return 0
 
 

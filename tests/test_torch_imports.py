@@ -25,7 +25,10 @@ def _modules():
 def test_every_module_listed():
     mods = _modules()
     for want in ("pbrl_tpu_torch.ops.mimic_kernel", "pbrl_tpu_torch.envs.vec",
-                 "pbrl_tpu_torch.train.ppo", "pbrl_tpu_torch.cli"):
+                 "pbrl_tpu_torch.train.ppo", "pbrl_tpu_torch.cli",
+                 "pbrl_tpu_torch.train.optim", "pbrl_tpu_torch.train.checkpoint",
+                 "pbrl_tpu_torch.train.networks", "pbrl_tpu_torch.train.running_stats",
+                 "pbrl_tpu_torch.utils.configio"):
         assert want in mods
 
 

@@ -28,15 +28,17 @@ with the seconds elapsed:
 4. eval: the exported walk policy, deterministic evaluation at 4096 envs
    for 300 policy steps through the kernel, with the kernel launch count
    of that run (300), its results against the recorded JAX eval
-   (``eval_reward`` >= 0.80, ``eval_episode_length`` >= 295), its wall
+   (``eval_reward`` >= 0.80, ``eval_episode_length`` >= 295; and the
+   port's own earlier result, WALK_EVAL, unchanged), its wall
    time, the kernel's time per launch (CUDA events) at 1024, 4096 and
    16384 envs beside the plain version's, its bound at 4096 envs (the FLOPs
    these inputs need: a contact's Delassus mass only where it touches,
    from the plain program's contact activity), and a ``torch.profiler`` trace
    of 5 eval steps: the top 10 device operations, the device-busy share
    of the window and the kernel launches per env step; then the envs that
-   ended before the last step in that eval (start time, step, and whether a
-   fall or the NaN quarantine ended them), recorded during it;
+   ended before the last step in that eval (start time, step, and what
+   ended them: a fall, the NaN quarantine, the clip's end or another
+   termination), recorded during it;
 5. train: PPO through ``ppo.train`` with the walk run's ``TrainConfig``
    (2048 envs x unroll 16, 1024-512 MLPs) from a seeded fresh init for
    TRAIN_ITERS iterations, with every metric finite in every iteration and
@@ -52,7 +54,26 @@ with the seconds elapsed:
    device, whose run config must be the walk run's, whose checkpoints must
    continue at 15258 + FINETUNE_ITERS with Adam's count, and whose policy
    must pass phase 4's eval bounds at 4096 envs x 300 steps;
-6. one JSON line describing the kernel, the card's ``nvidia-smi`` line, and
+6. recipes: the six other shipped clips (getup_facedown, getup_faceup,
+   kick, punch, jump, backflip), each its bundled policy at its
+   eval-stripped run config, RECIPE_ENVS envs x RECIPE_STEPS steps with
+   RECIPE_STEPS kernel launches, against the evals pbrl_tpu recorded
+   (``eval_reward`` >= recorded - 0.05, ``eval_episode_length`` >= 0.9 x
+   recorded), with its wall time and the envs that end early. On the
+   getup_facedown, getup_faceup and backflip evals, the kernel against its
+   plain version (phase 3's bounds, one policy step at the clip's own spec)
+   on the 256 first envs' inputs at the step where the most self contacts
+   touch, their touching contacts, the kernel's time on them at 4096 envs
+   and their bound. Then a fine-tune: backflip's exported learner state
+   (``assets/backflip_train_state.npz``) resumed for FINETUNE_ITERS
+   iterations through ``cli train`` with backflip's whole EnvConfig and
+   TrainConfig on the command line (curriculum, aerial window, drift, root
+   offset, residual targets, no joint limits, torque scale 2.5), whose run
+   config must be backflip's, whose checkpoints must continue at 201410 +
+   FINETUNE_ITERS with Adam's count, whose metrics must be finite with
+   FINETUNE_ITERS x 16 kernel launches, and whose policy must pass
+   backflip's eval bound; the rollout's ms per step;
+7. one JSON line describing the kernel, the card's ``nvidia-smi`` line, and
    last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero without the last line.
@@ -80,7 +101,22 @@ PROFILE_STEPS = 5
 TRAIN_ITERS = 40     # from-scratch PPO iterations (each 2048 envs x 16 steps)
 FALL_ENVS = 256      # training-rollout states taken as envs fall
 FALL_STEPS = 240     # the most policy steps to wait for FALL_ENVS falls
-FINETUNE_ITERS = 4   # iterations resumed from the exported walk learner state
+FINETUNE_ITERS = 4   # iterations resumed from an exported learner state
+WALK_EVAL = (0.83425, 299.70)  # the port's walk eval on the H100 so far (PERF.md)
+RECIPE_ENVS = 4096
+RECIPE_STEPS = 256   # pbrl_tpu's eval default
+# pbrl_tpu's recorded evals (128 envs x 256 steps): eval_reward, eval_episode_length, log
+RECIPES = {
+    "getup_facedown": (0.8998450636863708, 104.765625, "logs/eval_getup_r4head.json"),
+    "getup_faceup": (0.8922470808029175, 130.1953125, "logs/eval_getup_faceup_r4head.json"),
+    "kick": (0.7362321019172668, 52.734375, "logs/eval_kick_r4tr.json"),
+    "punch": (0.7847458124160767, 73.484375, "logs/eval_punch_r4tr.json"),
+    "jump": (0.6566115617752075, 254.7109375, "logs/eval_jump_je.json"),
+    "backflip": (0.4796271026134491, 240.2578125, "logs/eval_bf_ak.json"),
+}
+SELF_CONTACT_CLIPS = ("getup_facedown", "getup_faceup", "backflip")
+SELF_STATES = 256    # eval inputs kept per step for the self-contact check
+BACKFLIP_STEP = 201410
 
 
 def log(phase, msg=""):
@@ -250,16 +286,19 @@ def bound(sp, flop_per_env, B):
 
 
 @contextlib.contextmanager
-def watch_endings(env):
+def watch_endings(env, keep=0):
     """Within the block, record what each ``env.step`` ends: the start
-    times, each step's done and fall flags, and whether the kernel's raw
-    outputs were finite (the env's NaN quarantine turns a non-finite state
-    into a fall). A few small device operations per step; no copy to the
-    host."""
-    kstep, rec = env._kstep, {"t0": None, "done": [], "fall": [], "bad": []}
-    step = env.step
+    times, each step's done and fall flags and end time, and whether the
+    kernel's raw outputs were finite (the env's NaN quarantine turns a
+    non-finite state into a fall); with ``keep``, also the kernel's inputs
+    of the first ``keep`` envs at every step. A few small device operations
+    per step; no copy to the host."""
+    kstep, step = env._kstep, env.step
+    rec = {"env": env, "t0": None, "done": [], "fall": [], "bad": [], "time": [], "inputs": []}
 
     def spy(q, v, u):
+        if keep:
+            rec["inputs"].append(tuple(x[:keep].clone() for x in (q, v, u)))
         out = kstep(q, v, u)
         rec["bad"].append(~(out[0].isfinite().all(1) & out[1].isfinite().all(1)))
         return out
@@ -270,6 +309,7 @@ def watch_endings(env):
         out = step(state, action)
         rec["done"].append(out.done > 0)
         rec["fall"].append(out.metrics["fall"] > 0)
+        rec["time"].append(out.time)
         return out
 
     env._kstep, env.step = spy, watched
@@ -280,19 +320,31 @@ def watch_endings(env):
         del env.step
 
 
+ENDING_CAUSES = ("fall", "nonfinite", "clip_end", "other")
+
+
 def endings(rec):
     """From ``watch_endings``' record: each env that ended before the last
     step, with its start time, its live steps (the step it ended at, as
-    the eval counts them) and what ended it."""
+    the eval counts them) and what ended it: ``nonfinite``, a ``fall``
+    (where falls end episodes), the ``clip_end`` of a clip that does not
+    loop, else ``other`` (the pose termination or the episode time limit)."""
     import torch
 
-    done, fall, bad = (torch.stack(rec[k]) for k in ("done", "fall", "bad"))
+    env = rec["env"]
+    done, fall, bad, time_ = (torch.stack(rec[k]).cpu()
+                              for k in ("done", "fall", "bad", "time"))
+    fall &= env.config.early_termination
+    clip_end = ((time_ >= env.clip.cycle_time.cpu()) if not env.clip.loop
+                else torch.zeros_like(done))
     first = torch.argmax(done.to(torch.int8), dim=0)
+    t0s = rec["t0"].cpu()
     out = []
     for j in torch.nonzero(done.any(dim=0)).flatten().tolist():
         i = int(first[j])
-        cause = "nonfinite" if bool(bad[i, j]) else "fall" if bool(fall[i, j]) else "other"
-        t0 = float(rec["t0"][j])
+        cause = ("nonfinite" if bool(bad[i, j]) else "fall" if bool(fall[i, j])
+                 else "clip_end" if bool(clip_end[i, j]) else "other")
+        t0 = float(t0s[j])
         out.append({"env": j, "t0": t0, "t0_hex": t0.hex(), "live_steps": i, "cause": cause})
     return out
 
@@ -455,6 +507,199 @@ def train_phase(dev, smi, model, clip):
     shutil.rmtree(ft_dir, ignore_errors=True)
     return {"launches": launches, "kernel_ms": kernel_ms, "bound_ms": bound_ms,
             "max_abs_err": max(r_run[k] for k in ("dq", "dv_max", "dxpos", "dxquat", "dfall"))}
+
+
+@contextlib.contextmanager
+def track_steps():
+    """Within the block, every policy-step wrapper an env builds (also one
+    built inside ``cli.main``) is appended to the yielded list."""
+    from pbrl_tpu_torch.envs import vec
+
+    build, built = vec.build_mimic_step, []
+
+    def tracked(*a, **kw):
+        out = build(*a, **kw)
+        built.append(out[0])
+        return out
+
+    vec.build_mimic_step = tracked
+    try:
+        yield built
+    finally:
+        vec.build_mimic_step = build
+
+
+def self_contact_states(sp, inputs):
+    """From the kept kernel inputs of an eval: the step whose inputs have
+    the most self contacts touching at the policy step's entry, those
+    inputs, and the mean self contacts touching per env there."""
+    import torch
+
+    from pbrl_tpu_torch.ops import field_physics as fp
+
+    q = torch.stack([x[0] for x in inputs])  # (steps, envs, nq)
+    ground = torch.tensor([s.body1 < 0 for s in sp.slots], device=q.device)
+    touch = fp.contacts_touching(sp, q.reshape(-1, q.shape[-1])).reshape(
+        q.shape[0], q.shape[1], -1)
+    per_step = (touch & ~ground).sum(dim=(1, 2)).to(torch.float32) / q.shape[1]
+    i = int(torch.argmax(per_step))
+    return i, inputs[i], float(per_step[i])
+
+
+def recipes_phase(dev, smi, model):
+    """Phase 6: the six other shipped clips' evals, the kernel on their
+    self-contact states, and a fine-tune of backflip's learner state
+    through the command line (module docstring). Returns the numbers the
+    report line needs."""
+    import dataclasses
+    import io
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pbrl_tpu_torch import cli
+    from pbrl_tpu_torch.envs import EnvConfig, MimicVecEnv
+    from pbrl_tpu_torch.mocap import load_clip
+    from pbrl_tpu_torch.ops import mimic_kernel
+    from pbrl_tpu_torch.train import checkpoint, evaluate, ppo
+    from pbrl_tpu_torch.utils.configio import dict_to_config
+
+    def run_eval(clip, env, policy, stats, normalize, keep=0):
+        ks = env._kstep
+        torch.cuda.synchronize()
+        ks.launches = 0
+        t = time.perf_counter()
+        with watch_endings(env, keep) as rec:
+            metrics = evaluate(env, policy, stats, num_envs=RECIPE_ENVS, num_steps=RECIPE_STEPS,
+                               generator=torch.Generator(device=dev).manual_seed(0),
+                               normalize_obs=normalize)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        want_r, want_len, src = RECIPES[clip]
+        ended = endings(rec)
+        lost = sum(RECIPE_STEPS - e["live_steps"] for e in ended)
+        log(f"recipe {clip}", f"{RECIPE_ENVS} envs x {RECIPE_STEPS} steps in {wall:.2f}s, kernel "
+            f"launches {ks.launches}: " + json.dumps(metrics) + f"; recorded on a TPU ({src}, 128 "
+            f"envs): {want_r:.5f} / {want_len:.3f}; {len(ended)} envs end before step "
+            f"{RECIPE_STEPS}, by cause " + json.dumps({c: sum(e["cause"] == c for e in ended)
+                                                      for c in ENDING_CAUSES}) + f" | {smi}")
+        print("[smoke]   early, not at the clip's end: "
+              + json.dumps([e for e in ended if e["cause"] != "clip_end"][:20]), flush=True)
+        check(abs((RECIPE_STEPS - lost / RECIPE_ENVS) - metrics["eval_episode_length"]) < 1e-3,
+              f"{clip}: the recorded endings do not give the eval's mean length")
+        check(ks.launches == RECIPE_STEPS, f"{clip}: kernel launches {ks.launches} != "
+              f"{RECIPE_STEPS}")
+        check(all(np.isfinite(v) for v in metrics.values()), f"{clip}: non-finite eval {metrics}")
+        check(metrics["eval_reward"] >= want_r - 0.05,
+              f"{clip}: eval_reward {metrics['eval_reward']} < {want_r} - 0.05")
+        check(metrics["eval_episode_length"] >= 0.9 * want_len,
+              f"{clip}: eval_episode_length {metrics['eval_episode_length']} < 0.9 x {want_len}")
+        return rec
+
+    out = {"launches": {}, "self_ms": {}, "self_bound_ms": {}, "self_err": {}}
+    for clip in RECIPES:
+        policy, stats, run = checkpoint.load_policy(checkpoint.bundled_policy(clip), device=dev)
+        check(run["clip"] == clip, f"the bundled {clip} policy was trained on {run['clip']}")
+        env = MimicVecEnv(model, load_clip(clip, device=dev), cli._env_config(run), device=dev)
+        keep = SELF_STATES if clip in SELF_CONTACT_CLIPS else 0
+        normalize = run["train_config"].get("normalize_obs", True)
+        rec = run_eval(clip, env, policy, stats, normalize, keep)
+        out["launches"][clip] = env._kstep.launches
+        if not keep:
+            continue
+        # the kernel on this eval's most self-contact-rich states
+        ks, sp = env._kstep, env._kspec
+        i, (q, v, u), n_self = self_contact_states(sp, rec["inputs"])
+        del rec
+        plain = lambda a, b, c, sp=sp: mimic_kernel.mimic_step_plain(sp, a, b, c)
+        r = compare(ks, plain, q, v, u, steps=1)
+        log(f"check {clip}", f"{q.shape[0]} eval states at step {i} ({n_self:.3f} self contacts "
+            f"touching per env at its entry), spec: {len(sp.limits)} joint limits, torque "
+            f"limit {sp.tau_hi[0]:.1f} Nm on the first actuator: {fmt(r)}")
+        check_errors(clip, r)
+        need = needed(sp, q, v, u)
+        rep = -(-RECIPE_ENVS // q.shape[0])
+        ms = time_launch(ks, *(x.repeat(rep, 1)[:RECIPE_ENVS].contiguous() for x in (q, v, u)))
+        b_ms, b_by = bound(sp, need["flop_per_env"], RECIPE_ENVS)
+        log(f"kernel {clip}", f"those states at B={RECIPE_ENVS}: {ms:.4f} ms/launch; touching per "
+            f"env and substep {need['ground']:.3f} ground, {need['self']:.3f} self contacts; "
+            f"{need['flop_per_env']:.1f} FLOP/env/step -> bound {b_ms:.5f} ms ({b_by}) | {smi}")
+        out["self_ms"][clip], out["self_bound_ms"][clip] = ms, b_ms
+        out["self_err"][clip] = max(r[k] for k in ("dq", "dv_max", "dxpos", "dxquat", "dfall"))
+
+    # fine-tune backflip's learner state through the command line
+    _, _, run = checkpoint.load_policy(checkpoint.bundled_policy("backflip"), device=dev)
+    bf_cfg = dict_to_config(ppo.TrainConfig, run["train_config"])
+    ft_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_backflip")
+    shutil.rmtree(ft_dir, ignore_errors=True)
+    step0 = checkpoint.import_train_state(ft_dir, checkpoint.bundled_train_state("backflip"),
+                                          checkpoint.bundled_policy("backflip"))
+    check(step0 == BACKFLIP_STEP, f"imported step {step0} != {BACKFLIP_STEP}")
+    count0 = checkpoint.restore(ft_dir)["opt"]["count"]
+    ft_steps = FINETUNE_ITERS * bf_cfg.steps_per_iteration
+    argv = ["train", "--clip", "backflip", "--checkpoint-dir", ft_dir,
+            "--total-steps", str(ft_steps),
+            "--env-set", "action_mode=residual", "--env-set", "enforce_joint_limits=false",
+            "--env-set", "torque_limit_scale=2.5", "--env-set", "include_ref_root_offset=true",
+            "--env-set", "rsi_noise_root_xy=0.25", "--env-set", "pose_termination=1.57",
+            "--env-set", "pose_termination_after_cycle=2.4",
+            "--env-set", "aerial_window=0.27,0.5", "--env-set", "drift_w=0.35",
+            "--env-set", "curriculum_reset_prob=0.15",
+            "--env-set", "curriculum_phase_window=0.5,0.95",
+            "--train-set", "learning_rate=5e-05", "--train-set", "gamma=0.98",
+            "--train-set", "entropy_cost=0.0", "--train-set", "init_log_std=-1.5",
+            "--train-set", "reset_log_std=true"]
+    log("finetune backflip", f"imported step {step0}, Adam count {count0}, env_steps "
+        f"{checkpoint.restore(ft_dir)['env_steps']}; python -m pbrl_tpu_torch.cli "
+        + " ".join(argv))
+    text = io.StringIO()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with track_steps() as built, contextlib.redirect_stdout(text):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    ft_s = time.perf_counter() - t
+    lines = [json.loads(ln) for ln in text.getvalue().splitlines() if ln.startswith("{")]
+    for ln in lines:
+        print("[smoke]   " + json.dumps(ln), flush=True)
+    history = [ln for ln in lines if "iteration" in ln]
+    ft_launches = sum(k.launches for k in built)
+    ft_run = checkpoint.load_run_config(ft_dir)
+    check(ft_run["clip"] == "backflip"
+          and dict_to_config(EnvConfig, ft_run["env_config"])
+          == dict_to_config(EnvConfig, run["env_config"])
+          and dict_to_config(ppo.TrainConfig, ft_run["train_config"])
+          == dataclasses.replace(bf_cfg, total_env_steps=ft_steps),
+          f"the command line did not run backflip's config: {ft_run}")
+    check(len(history) == FINETUNE_ITERS and all(
+        np.isfinite(v) for h in history for v in h.values() if isinstance(v, (int, float))),
+        f"non-finite or missing fine-tune metrics: {history}")
+    check(ft_launches == FINETUNE_ITERS * bf_cfg.unroll_length,
+          f"fine-tune kernel launches {ft_launches} != {FINETUNE_ITERS * bf_cfg.unroll_length}")
+    last = checkpoint.latest_step(ft_dir)
+    check(last == step0 + FINETUNE_ITERS, f"backflip checkpoint {last} != {step0} + "
+          f"{FINETUNE_ITERS}")
+    payload = checkpoint.restore(ft_dir)
+    check(payload["opt"]["count"] == count0 + FINETUNE_ITERS * bf_cfg.update_epochs
+          * bf_cfg.num_minibatches, "the backflip fine-tune did not continue Adam's count")
+    check(all(bool(v.isfinite().all()) for net in ("policy", "value")
+              for v in payload[net].values()), "non-finite fine-tuned backflip params")
+    roll_ms = [h["rollout_s"] / bf_cfg.unroll_length * 1e3 for h in history]
+    log("finetune backflip", f"{FINETUNE_ITERS} iterations in {ft_s:.2f}s, {ft_launches} kernel "
+        f"launches, checkpoints {checkpoint._steps(ft_dir)}, Adam count {payload['opt']['count']}; "
+        f"rollout ms per step at {bf_cfg.num_envs} envs: "
+        + ", ".join(f"{x:.3f}" for x in roll_ms)
+        + f"; learn s: " + ", ".join(f"{h['learn_s']:.4f}" for h in history) + f" | {smi}")
+    policy, stats = checkpoint.load_policy_from_dir(ft_dir, device=dev)
+    env = MimicVecEnv(model, load_clip("backflip", device=dev), cli._env_config(ft_run),
+                      device=dev)
+    run_eval("backflip", env, policy, stats, bf_cfg.normalize_obs)
+    shutil.rmtree(ft_dir, ignore_errors=True)
+    out["ft_launches"] = ft_launches
+    return out
 
 
 def fmt(d):
@@ -634,6 +879,9 @@ def main():
           f"eval_reward {metrics['eval_reward']} < {MIN_EVAL_REWARD}")
     check(metrics["eval_episode_length"] >= MIN_EVAL_LENGTH,
           f"eval_episode_length {metrics['eval_episode_length']} < {MIN_EVAL_LENGTH}")
+    check(abs(metrics["eval_reward"] - WALK_EVAL[0]) < 1e-5
+          and abs(metrics["eval_episode_length"] - WALK_EVAL[1]) < 5e-3,
+          f"the walk eval moved from {WALK_EVAL}: {metrics}")
 
     prof = profile_eval(env, policy, stats, torch.Generator(device=dev).manual_seed(1))
     if prof is None:
@@ -649,8 +897,7 @@ def main():
     lost = sum(EVAL_STEPS - e["live_steps"] for e in ended)
     log("eval ends", f"{len(ended)} of {EVAL_ENVS} envs end before step {EVAL_STEPS}, "
         f"{lost} env-steps lost (mean length {EVAL_STEPS - lost / EVAL_ENVS:.4f}); by cause: "
-        + json.dumps({c: sum(e["cause"] == c for e in ended)
-                      for c in ("fall", "nonfinite", "other")}))
+        + json.dumps({c: sum(e["cause"] == c for e in ended) for c in ENDING_CAUSES}))
     print("[smoke]   early: " + json.dumps(ended), flush=True)
     check(abs((EVAL_STEPS - lost / EVAL_ENVS) - metrics["eval_episode_length"]) < 1e-3,
           "the recorded endings do not give the eval's mean length")
@@ -658,7 +905,10 @@ def main():
     # 5. train
     tr = train_phase(dev, smi, model, clip)
 
-    # 6. report
+    # 6. the other shipped recipes
+    rc = recipes_phase(dev, smi, model)
+
+    # 7. report
     print(json.dumps({"kernels": [{
         "name": "mimic_step", "route": "cuda",
         "source": "pbrl_tpu_torch/csrc/mimic_step.cu",
@@ -667,6 +917,10 @@ def main():
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "train_launches": tr["launches"], "train_ms": tr["kernel_ms"],
         "train_bound_ms": tr["bound_ms"], "train_max_abs_err": tr["max_abs_err"],
+        "recipe_launches": rc["launches"], "self_contact_ms": rc["self_ms"],
+        "self_contact_bound_ms": rc["self_bound_ms"],
+        "self_contact_max_abs_err": rc["self_err"], "backflip_finetune_launches":
+        rc["ft_launches"],
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

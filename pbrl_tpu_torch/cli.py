@@ -14,11 +14,12 @@ latest one. One process on one device: the multi-process flags and any
 ``eval`` rebuilds the env from the run configuration (``run_config.json``
 in ``--checkpoint-dir``, which must hold one, else the copy inside the
 policy file), strips the training-only perturbations as pbrl_tpu's eval
-does, and runs the deterministic evaluation. The clip is ``--clip``, else
-the run configuration's. The policy comes from ``--policy`` (an exported
-``.npz``), else from the latest of the port's checkpoints in
-``--checkpoint-dir``, else from the bundled ``assets/<clip>_policy.npz``
-written by ``scripts/export_torch_policy.py``; it must have been trained on
+does, applies ``--env-set`` on top, and runs the deterministic
+evaluation. The clip is ``--clip``, else the run configuration's. The
+policy comes from ``--policy`` (an exported ``.npz``), else from the latest
+of the port's checkpoints in ``--checkpoint-dir``, else from the bundled
+``assets/<clip>_policy.npz`` written by ``scripts/export_torch_policy.py``
+(one for each of the seven shipped clips); it must have been trained on
 that clip.
 
 Everything runs on ``--device`` (default ``cuda``); without a card the
@@ -166,8 +167,9 @@ def cmd_eval(args):
         raise ValueError(f"the policy was trained on clip {policy_run.get('clip')!r}, "
                          f"not on {clip!r}")
     run = run or policy_run
-    env = MimicVecEnv(humanoid_model(), load_clip(clip, device=args.device),
-                      _env_config(run), device=args.device)
+    env_cfg = _overrides(_env_config(run), args.env_set, "--env-set", _float_or_str)
+    env = MimicVecEnv(humanoid_model(), load_clip(clip, device=args.device), env_cfg,
+                      device=args.device)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
     normalize = (run.get("train_config") or {}).get("normalize_obs", True)
     metrics = evaluate(env, policy, stats, num_envs=args.num_envs, num_steps=args.steps,
@@ -226,6 +228,9 @@ def build_parser():
     sp.add_argument("--num-envs", type=int, default=128)
     sp.add_argument("--steps", type=int, default=256)
     sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--env-set", action="append", default=[], metavar="FIELD=VALUE",
+                    help="override EnvConfig fields on top of the eval-stripped run "
+                         "config (repeatable), e.g. --env-set ref_target_lead=0.025")
     sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     sp.set_defaults(fn=cmd_eval)
     return p

@@ -5,13 +5,16 @@ The whole env batch advances through ONE call of the policy-step wrapper
 per policy step (:mod:`pbrl_tpu_torch.ops.mimic_kernel`: the CUDA kernel
 for tensors on the card, its plain version for tensors on the CPU); the
 reference lookup, reward terms, termination and observation assembly are
-plain PyTorch on the same device.
+plain PyTorch on the same device. Every ``EnvConfig`` option of the
+shipped recipes is ported: the heading-frame root offset and link
+observations, the aerial-window and drift reward shaping, the takeoff-state
+curriculum of ``auto_reset``, and an actuator mask folded into the gains.
 
 Not ported yet, and refused with ``NotImplementedError``: what needs the
 einsum engine (``backend="xla"``, the held-torque PD path
 ``pd_per_substep=False``, the standard and inverse-dynamics PD
-controllers) and the training-time options no evaluation uses (see
-``_UNPORTED``).
+controllers). Where pbrl_tpu computes body frames with that engine (the
+link observation of a reset state), the port runs the field program's FK.
 """
 
 from __future__ import annotations
@@ -29,10 +32,6 @@ from pbrl_tpu_torch.mocap.clip import (MotionClip, phase, reference_aux,
                                        reference_frame_index, reference_state)
 from pbrl_tpu_torch.model.spec import Model
 from pbrl_tpu_torch.ops.mimic_kernel import build_mimic_step
-
-# EnvConfig fields whose non-default values the port does not implement yet.
-_UNPORTED = ("include_ref_root_offset", "include_link_obs", "aerial_window", "drift_w",
-             "curriculum_reset_prob")
 
 
 def _to(clip: MotionClip, device) -> MotionClip:
@@ -54,6 +53,7 @@ class MimicVecEnv:
         config: EnvConfig = EnvConfig(),
         gains: Optional[Gains] = None,
         backend: str = "kernel",
+        actuator_mask=None,
         device="cuda",
     ):
         if backend != "kernel":
@@ -65,10 +65,6 @@ class MimicVecEnv:
         if config.controller not in ("implicit_pd", "stable_pd"):
             raise NotImplementedError(
                 f"controller {config.controller!r} needs the einsum engine")
-        default = EnvConfig()
-        for name in _UNPORTED:
-            if getattr(config, name) != getattr(default, name):
-                raise NotImplementedError(f"EnvConfig.{name} is not ported yet")
         self.device = torch.device(device)
         model = model.replace(option=model.option.replace(
             timestep=np.asarray(config.physics_dt, np.float32),
@@ -90,13 +86,21 @@ class MimicVecEnv:
         gains = Gains(kp=np.asarray(gains.kp, np.float32) * np.float32(config.kp_scale),
                       kd=np.asarray(gains.kd, np.float32) * np.float32(config.kd_scale))
         self.gains = gains
+        dev = self.device
+        kp, kd = gains.kp, gains.kd
+        self._mask = None
+        if actuator_mask is not None:
+            # For the implicit-PD law the mask folds into the gains: zero kp
+            # and kd give zero explicit torque and zero implicit diagonal.
+            mk = np.asarray(actuator_mask).astype(np.float32)
+            kp, kd = kp * mk, kd * mk
+            self._mask = torch.as_tensor(mk, device=dev)
         allowed = config.fall_contact_bodies or ("right_ankle", "left_ankle")
         mode = "torque" if config.action_mode == "torque" else "pd"
         self._kstep, self._kspec = build_mimic_step(
-            model, kp=gains.kp, kd=gains.kd, n_substeps=config.n_substeps, mode=mode,
+            model, kp=kp, kd=kd, n_substeps=config.n_substeps, mode=mode,
             fall_allowed_bodies=allowed, torque_scale=config.torque_limit_scale)
 
-        dev = self.device
         self._qposadr = torch.as_tensor(model.actuator_qposadr, device=dev)
         rng = model.jnt_range[list(model.actuator_jntid())]  # (nu, 2) actuator order
         self._act_lo = torch.as_tensor(rng[:, 0], device=dev)
@@ -111,6 +115,10 @@ class MimicVecEnv:
             n -= 2
         if self.config.include_phase:
             n += 1
+        if self.config.include_ref_root_offset:
+            n += 2
+        if self.config.include_link_obs:
+            n += 7 * self.model.nbody
         return n
 
     @property
@@ -118,10 +126,36 @@ class MimicVecEnv:
         return self.model.nu
 
     # ------------------------------------------------------------------
-    def _obs(self, qpos, qvel, t):
-        parts = [qpos[:, 2:] if self.config.exclude_root_xy else qpos, qvel]
-        if self.config.include_phase:
+    def _obs(self, qpos, qvel, t, xpos=None, xquat=None):
+        """The observation; the link terms take the step's body frames, or
+        run the field program's FK when none are given (a reset state)."""
+        c = self.config
+        parts = [qpos[:, 2:] if c.exclude_root_xy else qpos, qvel]
+        if c.include_phase:
             parts.append(phase(self.clip, t)[:, None])
+        if c.include_ref_root_offset or c.include_link_obs:
+            w, x, y, z = qpos[:, 3], qpos[:, 4], qpos[:, 5], qpos[:, 6]
+            yaw = torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
+            cy, sy = torch.cos(yaw), torch.sin(yaw)
+        if c.include_ref_root_offset:
+            # the reference's root xy in the root heading (yaw) frame
+            q_ref, _ = reference_state(self.clip, t)
+            d = q_ref[:, :2] - qpos[:, :2]
+            parts.append(torch.stack([cy * d[:, 0] + sy * d[:, 1],
+                                      -sy * d[:, 0] + cy * d[:, 1]], dim=1))
+        if c.include_link_obs:
+            if xpos is None:
+                xpos, xquat = task.body_frames(self._kspec, qpos)
+            rel = xpos - qpos[:, None, :3]
+            rx = cy[:, None] * rel[..., 0] + sy[:, None] * rel[..., 1]
+            ry = -sy[:, None] * rel[..., 0] + cy[:, None] * rel[..., 1]
+            # heading-normalised orientations: q_yaw^-1 * xquat
+            h = 0.5 * yaw
+            zero = torch.zeros_like(h)
+            qh_inv = torch.stack([torch.cos(h), zero, zero, -torch.sin(h)], dim=1)
+            qrel = quat.mul(qh_inv[:, None, :], xquat)
+            parts.append(torch.cat([rx, ry, rel[..., 2], qrel.reshape(qpos.shape[0], -1)],
+                                   dim=1))
         return torch.cat(parts, dim=1)
 
     def _reward_batch(self, qpos, qvel, t, xpos, xquat, fall):
@@ -150,6 +184,25 @@ class MimicVecEnv:
         r_com = torch.exp(-c.s_com * torch.sum((com - com_ref) ** 2, dim=1))
 
         reward = c.w_pose * r_pose + c.w_vel * r_vel + c.w_ee * r_ee + c.w_com * r_com
+        if c.aerial_window:
+            # flight phase: blend toward a root-rotation and root-angular-
+            # velocity reward inside the window
+            lo, hi = c.aerial_window
+            ph = phase(self.clip, t)
+            edge = max(c.aerial_edge, 1e-6)
+            win = (torch.clamp((ph - lo) / edge, 0.0, 1.0)
+                   * torch.clamp((hi - ph) / edge, 0.0, 1.0))
+            r_root = torch.exp(-c.aerial_s_root * root_rot ** 2)
+            dw = qvel[:, 3:6] - v_ref[:, 3:6]
+            r_angvel = torch.exp(-c.aerial_s_angvel * torch.sum(dw ** 2, dim=1))
+            aerial = (c.aerial_w_pose * r_pose + c.aerial_w_root * r_root
+                      + c.aerial_w_angvel * r_angvel + c.aerial_w_com * r_com)
+            reward = (1.0 - win) * reward + win * aerial
+        if c.drift_w > 0:
+            # training-only root-xy shaping at a gentle scale
+            dxy = qpos[:, :2] - q_ref[:, :2]
+            r_drift = torch.exp(-c.drift_s * torch.sum(dxy ** 2, dim=1))
+            reward = (1.0 - c.drift_w) * reward + c.drift_w * r_drift
         if c.early_termination:
             reward = torch.where(fall > 0, 0.0, reward)
         terms = {
@@ -218,7 +271,7 @@ class MimicVecEnv:
     def step(self, state: VecState, action: torch.Tensor) -> VecState:
         c = self.config
         if c.action_mode == "torque":
-            u = action
+            u = action if self._mask is None else action * self._mask[None]
         else:
             u = self._target(state.qpos, state.time, action)
         qpos, qvel, xpos, xquat, fall = self._kstep(
@@ -234,7 +287,7 @@ class MimicVecEnv:
         xquat = torch.where(torch.isfinite(xquat), xquat, 1.0)
         fall = torch.maximum(fall, bad.to(fall.dtype))
 
-        obs = self._obs(qpos, qvel, t)
+        obs = self._obs(qpos, qvel, t, xpos, xquat)
         reward, terms = self._reward_batch(qpos, qvel, t, xpos, xquat, fall)
         reward = torch.where(bad, 0.0, torch.nan_to_num(reward))
         done = torch.zeros_like(fall)
@@ -261,12 +314,47 @@ class MimicVecEnv:
                              done=done, metrics=metrics)
 
     def auto_reset(self, state: VecState, generator: Optional[torch.Generator] = None,
-                   t0: Optional[torch.Tensor] = None) -> VecState:
+                   t0: Optional[torch.Tensor] = None, u: Optional[torch.Tensor] = None,
+                   peer: Optional[torch.Tensor] = None) -> VecState:
         """Re-initialise envs where done=1 (keeps the finished step's
         reward, done and metrics). Fresh states are drawn for the whole
         batch, as :meth:`reset` draws them (start times from ``t0`` when
-        given)."""
-        fresh = self.reset(state.done.shape[0], generator, t0=t0)
+        given). With ``curriculum_reset_prob`` p > 0, an env restarts with
+        probability p from the state of a peer drawn uniformly among the
+        alive envs (in ``curriculum_phase_window``, when set); ``u`` (B,)
+        and ``peer`` (B,) replace those draws of ``generator`` when given."""
+        c = self.config
+        B = state.done.shape[0]
+        fresh = self.reset(B, generator, t0=t0)
+        if c.curriculum_reset_prob > 0:
+            dev = self.device
+            gdev = generator.device if generator is not None else dev
+            ok = state.done == 0
+            if c.curriculum_phase_window:
+                lo, hi = c.curriculum_phase_window
+                ph = phase(self.clip, state.time)
+                ok = ok & (ph >= lo) & (ph <= hi)
+            if u is None:
+                u = torch.rand(B, generator=generator, device=gdev).to(dev)
+            if peer is None:
+                # Uniform over the eligible envs by inverse CDF, over all envs
+                # when none is (ok[peer] then refuses the draw); no host sync.
+                w = torch.where(ok.any(), ok.to(torch.float32), 1.0)
+                cdf = torch.cumsum(w, 0)
+                r = torch.rand(B, generator=generator, device=gdev).to(dev) * cdf[-1]
+                peer = torch.searchsorted(cdf, r, right=True).clamp_(max=B - 1)
+            use = (u < c.curriculum_reset_prob) & ok[peer]
+            peer_qpos = state.qpos[peer]
+            if c.curriculum_recenter_xy:
+                ref_q, _ = reference_state(self.clip, state.time[peer])
+                peer_qpos = torch.cat([ref_q[:, :2], peer_qpos[:, 2:]], dim=1)
+            qpos0 = torch.where(use[:, None], peer_qpos, fresh.qpos)
+            qvel0 = torch.where(use[:, None], state.qvel[peer], fresh.qvel)
+            t_peer = state.time[peer]
+            t0 = torch.where(use, t_peer, fresh.time)
+            fresh = fresh.replace(qpos=qpos0, qvel=qvel0, time=t0,
+                                  episode_start=torch.where(use, t_peer, fresh.episode_start),
+                                  obs=self._obs(qpos0, qvel0, t0))
         d = state.done.to(torch.bool)
 
         def sel(a, b):

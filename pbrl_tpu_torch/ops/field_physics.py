@@ -1457,6 +1457,20 @@ def count_policy_step_flops(spec: SubstepSpec, active: Optional[torch.Tensor] = 
     return int(B * per_env - spared)
 
 
+def _touching(spec: SubstepSpec, q: List) -> torch.Tensor:
+    xpos, xquat, _, _ = _fk(spec, q)
+    cache = {}
+    return torch.stack([
+        _ensure_field(_contact_geometry(spec, slot, xpos, xquat, q[0], cache)[0], q[0]) < 0.0
+        for slot in spec.slots], 1)
+
+
+def contacts_touching(spec: SubstepSpec, qpos: torch.Tensor) -> torch.Tensor:
+    """``(B, nslot)`` bool: which contacts touch (distance < 0) at these
+    ``(B, nq)`` poses, on their device."""
+    return _touching(spec, list(qpos.t().contiguous().to(torch.float32).unbind(0)))
+
+
 def contact_activity(spec: SubstepSpec, qpos: torch.Tensor, qvel: torch.Tensor,
                      u: torch.Tensor) -> torch.Tensor:
     """``(n_substeps, B, nslot)`` bool: which contacts touch (distance < 0)
@@ -1467,11 +1481,7 @@ def contact_activity(spec: SubstepSpec, qpos: torch.Tensor, qvel: torch.Tensor,
     target = list(u.t().contiguous().to(torch.float32).unbind(0))
     out, held = [], None
     for k in range(spec.n_substeps):
-        xpos, xquat, _, _ = _fk(spec, q)
-        cache = {}
-        out.append(torch.stack([
-            _ensure_field(_contact_geometry(spec, slot, xpos, xquat, q[0], cache)[0], q[0]) < 0.0
-            for slot in spec.slots], 1))
+        out.append(_touching(spec, q))
         q, v, _, h = substep(spec, q, v, target, held_self=held)
         if k == 0:
             held = h or None

@@ -223,6 +223,20 @@ def load_policy_from_dir(directory: str, device="cuda"):
     return net.to(device).eval(), stats.to(device)
 
 
+def _unwrapped_env_steps(arrays: dict, run: dict) -> int:
+    """pbrl_tpu counts env steps in int32, which wraps past 2**31
+    (``ckpts/backflip`` holds -1,992,425,472). Adam's count gives the
+    iterations run, hence the count modulo 2**32 picks the true value."""
+    raw = int(arrays["env_steps"])
+    cfg = run["train_config"]
+    per_iteration = cfg["num_envs"] * cfg["unroll_length"]
+    updates = cfg["update_epochs"] * cfg["num_minibatches"]
+    steps = int(arrays["opt/count"]) // updates * per_iteration
+    if (steps - raw) % 2 ** 32:
+        raise ValueError(f"env_steps {raw} is not {steps} modulo 2**32")
+    return steps
+
+
 def import_train_state(directory: str, train_state: str, policy: str) -> int:
     """Write an exported pbrl_tpu learner state (``<clip>_train_state.npz``
     plus the policy params of ``<clip>_policy.npz``) into ``directory`` as
@@ -244,6 +258,7 @@ def import_train_state(directory: str, train_state: str, policy: str) -> int:
         return out
 
     step = int(arrays["step"])
+    run = json.loads(str(arrays["run_config"]))
     os.makedirs(directory, exist_ok=True)
     with open(os.path.join(directory, _RUN_CONFIG), "w") as f:
         f.write(str(arrays["run_config"]))
@@ -253,6 +268,6 @@ def import_train_state(directory: str, train_state: str, policy: str) -> int:
         "value": tree("value/"),
         "opt": {"count": int(arrays["opt/count"]), "mu": moments("mu"), "nu": moments("nu")},
         "obs_stats": {k: getattr(stats, k) for k in ("count", "mean", "m2")},
-        "env_steps": int(arrays["env_steps"]),
+        "env_steps": _unwrapped_env_steps(arrays, run),
     }, step)
     return step

@@ -1,22 +1,27 @@
-"""Export a pbrl_tpu walk checkpoint for the PyTorch port.
+"""Export pbrl_tpu checkpoints for the PyTorch port.
 
-Restores an Orbax checkpoint with the JAX stack (the only place outside
-the tests where the port's data touches ``jax``/``orbax``) and writes two
-``.npz`` files that ``pbrl_tpu_torch.train.checkpoint`` reads with numpy
-alone:
+Restores the latest Orbax checkpoint of each given run directory with the
+JAX stack (the only place outside the tests where the port's data touches
+``jax``/``orbax``) and writes ``.npz`` files that
+``pbrl_tpu_torch.train.checkpoint`` reads with numpy alone, named after the
+run configuration's clip (``ckpts/getup`` holds ``getup_facedown``):
 
-* ``--out`` (``load_policy``): the policy params in float32 under flax's
-  names, the clamped ``log_std``, the observation statistics and the run
-  configuration; all that evaluation needs.
-* ``--train-state-out`` (``import_train_state``): the rest of the learner
-  state, so that a fine-tune resumes as pbrl_tpu's resume would: the value
-  params, the unclamped ``log_std``, Adam's count, mu and nu of both nets,
-  the observation statistics, ``env_steps``, the checkpoint's step and the
-  run configuration.
+* ``<clip>_policy.npz`` (``load_policy``): the policy params in float32
+  under flax's names, the clamped ``log_std``, the observation statistics
+  and the run configuration; all that evaluation needs.
+* with ``--train-state``, ``<clip>_train_state.npz``
+  (``import_train_state``): the rest of the learner state, so that a
+  fine-tune resumes as pbrl_tpu's resume would: the value params, the
+  unclamped ``log_std``, Adam's count, mu and nu of both nets, the
+  observation statistics, ``env_steps``, the checkpoint's step and the run
+  configuration.
 
+The bundled files are regenerated with
+
+    JAX_PLATFORMS=cpu python scripts/export_torch_policy.py --train-state \
+        ckpts/walk ckpts/backflip
     JAX_PLATFORMS=cpu python scripts/export_torch_policy.py \
-        --checkpoint-dir ckpts/walk --out pbrl_tpu_torch/assets/walk_policy.npz \
-        --train-state-out pbrl_tpu_torch/assets/walk_train_state.npz
+        ckpts/getup ckpts/getup_faceup ckpts/kick ckpts/punch ckpts/jump
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ import sys
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 
 def flatten(tree, prefix=""):
@@ -48,22 +54,17 @@ def _save(path, arrays):
             "arrays": {k: list(v.shape) for k, v in arrays.items()}}
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--checkpoint-dir", default="ckpts/walk")
-    ap.add_argument("--out", default="pbrl_tpu_torch/assets/walk_policy.npz")
-    ap.add_argument("--train-state-out", default="pbrl_tpu_torch/assets/walk_train_state.npz")
-    args = ap.parse_args(argv)
-
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
+def export(checkpoint_dir, out_dir, train_state):
+    """Write ``<clip>_policy.npz`` (and ``<clip>_train_state.npz``) for the
+    latest checkpoint of ``checkpoint_dir``; returns one report per file."""
     from pbrl_tpu.train import checkpoint
     from pbrl_tpu.train.networks import PolicyNetwork
 
-    step = checkpoint.latest_step(args.checkpoint_dir)
-    payload = checkpoint.restore(args.checkpoint_dir, step)
-    run = json.dumps(checkpoint.load_run_config(args.checkpoint_dir))
+    step = checkpoint.latest_step(checkpoint_dir)
+    payload = checkpoint.restore(checkpoint_dir, step)
+    run_config = checkpoint.load_run_config(checkpoint_dir)
+    clip = run_config["clip"]
+    run = json.dumps(run_config)
     stats = {f"obs_stats/{k}": np.asarray(payload["obs_stats"][k], np.float32)
              for k in ("count", "mean", "m2")}
 
@@ -74,7 +75,9 @@ def main(argv=None):
     arrays = {f"policy/{k}": v for k, v in policy.items()}
     arrays.update(stats)
     arrays["run_config"] = np.asarray(run)
-    reports = [_save(args.out, arrays)]
+    reports = [_save(os.path.join(out_dir, f"{clip}_policy.npz"), arrays)]
+    if not train_state:
+        return reports
 
     # optax.chain(clip_by_global_norm, adam(schedule)): (EmptyState,
     # (ScaleByAdamState(count, mu, nu), ScaleByScheduleState(count)))
@@ -92,7 +95,24 @@ def main(argv=None):
     train["env_steps"] = np.asarray(payload["env_steps"], np.int64)
     train["step"] = np.asarray(step, np.int64)
     train["run_config"] = np.asarray(run)
-    reports.append(_save(args.train_state_out, train))
+    reports.append(_save(os.path.join(out_dir, f"{clip}_train_state.npz"), train))
+    return reports
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("checkpoint_dirs", nargs="*", default=["ckpts/walk"],
+                    help="pbrl_tpu run directories (run_config.json + Orbax steps)")
+    ap.add_argument("--out-dir", default=os.path.join(ROOT, "pbrl_tpu_torch", "assets"))
+    ap.add_argument("--train-state", action="store_true",
+                    help="also write each run's learner state")
+    args = ap.parse_args(argv)
+
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    reports = [r for d in args.checkpoint_dirs
+               for r in export(d, args.out_dir, args.train_state)]
     print(json.dumps(reports))
     return 0
 

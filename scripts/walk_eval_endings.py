@@ -1,10 +1,11 @@
-"""Run walk-eval envs from given start times through pbrl_tpu and the port.
+"""Run eval envs of a shipped clip from given start times through pbrl_tpu
+and the port.
 
-Both sides run the deterministic walk policy (the exported
-``pbrl_tpu_torch/assets/walk_policy.npz``) on the CPU, from the same
-reference start states, with the eval's env config (the walk run's, with
-the training-only perturbations stripped as both ``eval`` commands strip
-them):
+Both sides run the clip's deterministic policy (the exported
+``pbrl_tpu_torch/assets/<clip>_policy.npz``, walk's by default, ``--clip``)
+on the CPU, from the same reference start states, with the eval's env
+config (the clip's run config, with the training-only perturbations
+stripped as both ``eval`` commands strip them):
 
 * pbrl_tpu's ``MimicVecEnv``, its physics through pbrl_tpu's field program
   (``pbrl_tpu.ops.field_physics``, the kernel's own math) run eagerly
@@ -26,6 +27,8 @@ fault of the port from a fall that the reference shares.
         --sides port engine field --t0 0x1.1p+0 0x1.8p-2
     JAX_PLATFORMS=cpu python scripts/walk_eval_endings.py --sides engine --grid 4096
     python scripts/walk_eval_endings.py --sides kernel --grid 4096   # on the card
+    JAX_PLATFORMS=cpu python scripts/walk_eval_endings.py --clip jump --steps 256 \\
+        --sides engine --grid 1024
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ def _float(x: str) -> float:
     return float.fromhex(x) if "0x" in x else float(x)
 
 
-def jax_side(run, t0, steps, physics_mode):
+def jax_side(clip, run, t0, steps, physics_mode):
     import jax
     import jax.numpy as jnp
 
@@ -62,7 +65,7 @@ def jax_side(run, t0, steps, physics_mode):
 
     cfg = dict_to_config(EnvConfig, {k: list(v) if isinstance(v, tuple) else v for k, v in
                                      vars(_env_config(run)).items()})
-    env = MimicVecEnv(humanoid_model(), load_clip("walk"), cfg, backend="xla")
+    env = MimicVecEnv(humanoid_model(), load_clip(clip), cfg, backend="xla")
     kp, kd = generate_kp_kd_gains()
     spec = fp.build_spec(env.model, kp=kp, kd=kd, n_substeps=cfg.n_substeps, mode="pd",
                          fall_allowed_bodies=("right_ankle", "left_ankle"),
@@ -83,7 +86,7 @@ def jax_side(run, t0, steps, physics_mode):
 
     if physics_mode == "field":
         env._physics = physics  # run eagerly: XLA takes too long to compile it on the CPU
-    with np.load("pbrl_tpu_torch/assets/walk_policy.npz") as z:
+    with np.load(f"pbrl_tpu_torch/assets/{clip}_policy.npz") as z:
         tree = {}
         for k in z.files:
             if k.startswith("policy/"):
@@ -118,7 +121,7 @@ def jax_side(run, t0, steps, physics_mode):
     return np.stack(qs), np.stack(dones), np.stack(falls)
 
 
-def torch_side(run, t0, steps, device):
+def torch_side(clip, run, t0, steps, device):
     import torch
 
     from pbrl_tpu_torch.cli import _env_config
@@ -127,8 +130,8 @@ def torch_side(run, t0, steps, device):
     from pbrl_tpu_torch.model import humanoid_model
     from pbrl_tpu_torch.train import checkpoint, running_stats
 
-    policy, stats, _ = checkpoint.load_policy(checkpoint.bundled_policy("walk"), device=device)
-    env = MimicVecEnv(humanoid_model(), load_clip("walk", device=device), _env_config(run),
+    policy, stats, _ = checkpoint.load_policy(checkpoint.bundled_policy(clip), device=device)
+    env = MimicVecEnv(humanoid_model(), load_clip(clip, device=device), _env_config(run),
                       device=device)
     state = env.reset(len(t0), t0=torch.tensor(t0, dtype=torch.float32, device=device))
     qs, dones, falls = [], [], []
@@ -154,6 +157,7 @@ def main(argv=None):
     start.add_argument("--t0", nargs="+", help="start times (float or hex)")
     start.add_argument("--grid", type=int, help="this many start times spread evenly "
                        "over the clip's cycle (a summary per side, no per-env rows)")
+    ap.add_argument("--clip", default="walk", help="a shipped clip with a bundled policy")
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--sides", nargs="+", default=["port", "engine", "field"],
                     choices=["port", "kernel", "engine", "field"],
@@ -168,9 +172,9 @@ def main(argv=None):
     from pbrl_tpu_torch.mocap import load_clip
     from pbrl_tpu_torch.train import checkpoint
 
-    run = checkpoint.load_policy(checkpoint.bundled_policy("walk"), device="cpu")[2]
+    run = checkpoint.load_policy(checkpoint.bundled_policy(args.clip), device="cpu")[2]
     if args.grid:
-        cycle = float(load_clip("walk", device="cpu").cycle_time)
+        cycle = float(load_clip(args.clip, device="cpu").cycle_time)
         t0 = [float(np.float32(cycle * i / args.grid)) for i in range(args.grid)]
     else:
         t0 = [_float(x) for x in args.t0]
@@ -178,9 +182,10 @@ def main(argv=None):
     for side in args.sides:
         t = time.perf_counter()
         if side in ("port", "kernel"):
-            sides[side] = torch_side(run, t0, args.steps, "cpu" if side == "port" else "cuda")
+            sides[side] = torch_side(args.clip, run, t0, args.steps,
+                                     "cpu" if side == "port" else "cuda")
         else:
-            sides[side] = jax_side(run, t0, args.steps, side)
+            sides[side] = jax_side(args.clip, run, t0, args.steps, side)
         ends = first_end(sides[side][1])
         early = [(x, e) for x, e in zip(t0, ends) if e is not None]
         print(json.dumps({"side": side, "seconds": time.perf_counter() - t,

@@ -49,7 +49,14 @@ def test_eval_refuses(case, tmp_path):
         with pytest.raises(ValueError, match="trained on clip 'walk', not on 'jump'"):
             _eval("--clip", "jump", "--policy", WALK_POLICY)
     else:
-        # the kick run's policy is not bundled: the walk policy is not used in its place
-        shutil.copy(os.path.join(CKPTS, "kick", "run_config.json"), tmp_path)
-        with pytest.raises(FileNotFoundError, match="kick_policy.npz"):
+        # a run on a clip file has no bundled policy (each of the seven shipped
+        # clips has one): the walk policy is not used in its place
+        from pbrl_tpu_torch.mocap.clip import clip_path
+
+        clip_file = tmp_path / "humanoid3d_my_kick.txt"
+        shutil.copy(clip_path("kick"), clip_file)
+        run = checkpoint.load_run_config(os.path.join(CKPTS, "kick"))
+        run["clip"] = str(clip_file)
+        (tmp_path / "run_config.json").write_text(json.dumps(run))
+        with pytest.raises(FileNotFoundError, match="humanoid3d_my_kick.txt_policy.npz"):
             _eval("--checkpoint-dir", str(tmp_path))

@@ -244,6 +244,8 @@ def test_contact_activity_matches_fall_flag(specs):
     fall = (active & fall_slots).any(-1).any(0).float()
     np.testing.assert_array_equal(fall.numpy(), mimic_step_plain(ts, q, v, u)[4].numpy())
     assert fall[2] == 1.0
+    # the first substep's contacts are those touching at the inputs' poses
+    assert torch.equal(tfp.contacts_touching(ts, q), active[0])
     shape = (ts.n_substeps, 3, len(ts.slots))
     none = tfp.count_policy_step_flops(ts, torch.zeros(shape, dtype=torch.bool))
     assert none < tfp.count_policy_step_flops(ts, active) < 3 * tfp.count_policy_step_flops(ts)

@@ -257,6 +257,41 @@ def test_cuda_source_on_host_matches_plain(host_lib, mode, self_mass):
         np.testing.assert_allclose(a, b, atol=tol, err_msg=name)
 
 
+@pytest.mark.parametrize("run_dir", ["getup", "backflip"])
+def test_cuda_source_on_host_recipe_spec(host_lib, run_dir):
+    """The kernel table of a shipped recipe's env (no joint limits, so the
+    spec has none; backflip's torque scale 2.5, and an actuator mask folded
+    into its gains), 2 substeps: the source on the host and the plain
+    version agree as above."""
+    import json
+    import os
+
+    from pbrl_tpu_torch.envs import EnvConfig, MimicVecEnv
+    from pbrl_tpu_torch.mocap import load_clip
+    from pbrl_tpu_torch.utils.configio import dict_to_config
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "ckpts", run_dir,
+                        "run_config.json")
+    with open(path) as f:
+        run = json.load(f)
+    cfg = dataclasses.replace(dict_to_config(EnvConfig, run["env_config"]), policy_dt=0.004)
+    mask = (np.arange(28) % 5 != 0).astype(np.float32) if run_dir == "backflip" else None
+    env = MimicVecEnv(humanoid_model(), load_clip(run["clip"], device="cpu"), cfg,
+                      actuator_mask=mask, device="cpu")
+    step = env._kstep
+    assert step.spec.limits == [] and step.spec.n_substeps == 2
+    assert step.spec.tau_hi[0] == pytest.approx(
+        float(humanoid_model().actuator_gear[0]) * cfg.torque_limit_scale
+        * float(humanoid_model().actuator_ctrlrange[0, 1]))
+    q, v, u = _humanoid_inputs(3, 3, "pd")
+    q[:, 7:] *= 3.0  # beyond the joint ranges, which no limit holds here
+    got = _host_step(host_lib, step, q, v, u)
+    want = [t.numpy() for t in step(q, v, u)]
+    for name, a, b, tol in zip(("qpos", "qvel", "xpos", "xquat", "fall"), got, want,
+                               (1e-6, 1e-4, 1e-6, 1e-6, 0.0)):
+        np.testing.assert_allclose(a, b, atol=tol, err_msg=name)
+
+
 def test_cuda_source_on_host_sphere(host_lib):
     step, _ = mimic_kernel.build_mimic_step(sphere_model(), n_substeps=3)
     q = torch.from_numpy(np.tile(np.asarray(sphere_model().qpos0, np.float32), (5, 1)))

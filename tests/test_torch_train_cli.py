@@ -83,17 +83,20 @@ def test_train_without_card_does_not_fall_back(tmp_path):
     assert not os.path.exists(tmp_path / "run_config.json")
 
 
-def test_exported_train_state_matches_orbax():
-    """Every array of the two exported files equals ``ckpts/walk``'s."""
+@pytest.mark.parametrize("clip", ["walk", "backflip"])
+def test_exported_train_state_matches_orbax(clip):
+    """Every array of the clip's two exported files equals its
+    ``ckpts/<clip>`` checkpoint's (the latest step)."""
     import jax
 
     from pbrl_tpu.train import checkpoint as jckpt
 
-    payload = jax.tree_util.tree_map(np.asarray, jckpt.restore(os.path.join(CKPTS, "walk")))
-    step = jckpt.latest_step(os.path.join(CKPTS, "walk"))
-    with np.load(checkpoint.bundled_train_state("walk")) as z:
+    payload = jax.tree_util.tree_map(np.asarray, jckpt.restore(os.path.join(CKPTS, clip)))
+    step = jckpt.latest_step(os.path.join(CKPTS, clip))
+    assert step == {"walk": 15258, "backflip": 201410}[clip]
+    with np.load(checkpoint.bundled_train_state(clip)) as z:
         state = {k: z[k] for k in z.files}
-    with np.load(checkpoint.bundled_policy("walk")) as z:
+    with np.load(checkpoint.bundled_policy(clip)) as z:
         pol = {k: z[k] for k in z.files}
 
     def flat(tree, prefix):
@@ -120,14 +123,15 @@ def test_exported_train_state_matches_orbax():
         np.testing.assert_array_equal(state[k], v, err_msg=k)
     assert int(adam["count"]) == int(sched["count"])
     assert json.loads(str(state["run_config"])) == jckpt.load_run_config(
-        os.path.join(CKPTS, "walk"))
+        os.path.join(CKPTS, clip))
     # the policy file's params other than the clamped log_std are the checkpoint's
     for k, v in flat(payload["params"]["policy"]["params"], "policy/").items():
         if k != "policy/log_std":
             np.testing.assert_array_equal(pol[k], v, err_msg=k)
     np.testing.assert_array_equal(pol["policy/log_std"],
                                   np.clip(want["policy/log_std"], -2.3, 0.7))
-    assert want["policy/log_std"].min() < -2.3  # the clamp does bite: both copies are needed
+    if clip == "walk":  # the clamp does bite: both copies are needed
+        assert want["policy/log_std"].min() < -2.3
 
 
 def test_imported_walk_state_resumes(tmp_path):

@@ -73,7 +73,27 @@ with the seconds elapsed:
    FINETUNE_ITERS with Adam's count, whose metrics must be finite with
    FINETUNE_ITERS x 16 kernel launches, and whose policy must pass
    backflip's eval bound; the rollout's ms per step;
-7. one JSON line describing the kernel, the card's ``nvidia-smi`` line, and
+7. engine: the einsum engine in plain PyTorch (``backend="xla"``) against
+   the kernel from the same reset states (256 envs, 2 policy steps, RSI
+   noise 0.05/0.5) in ``absolute`` mode (zero action), ``torque`` mode (20
+   sin actions) and with held-torque PD (``pd_per_substep=False``: one
+   Stable-PD torque per env from the pre-step state, the kernel in
+   ``torque`` mode), at pbrl_tpu's kernel-vs-engine bounds (qpos 5e-3;
+   qvel per env median 1e-2, p90 0.15, max 1.0; reward 5e-2), and airborne
+   (+1 m: qpos 5e-4, qvel 1.5e-2); a from-scratch ``cli train --clip walk
+   --env-set pd_per_substep=false`` with walk's TrainConfig for
+   HELD_ITERS iterations (finite metrics, HELD_ITERS x 16 kernel launches,
+   ``pd_per_substep: false`` in the run config), the kernel against its
+   plain version in ``torque`` mode on that policy's rollout states and its
+   time there at 2048 and 4096 envs beside its bound; one ``cli train
+   --backend xla`` iteration each with ``standard_pd`` and
+   ``inverse_dynamics_pd`` (finite metrics, no kernel built or launched);
+   the walk policy evaluated on the engine at 4096 envs x ENGINE_EVAL_STEPS
+   from phase 4's start states beside the kernel over the same steps
+   (rewards within 0.005), with its early endings, its ms per policy step
+   (CUDA events) and its device launches per step (``torch.profiler``);
+   ``cli replay --clip walk`` against the clip's reference states;
+8. one JSON line describing the kernel, the card's ``nvidia-smi`` line, and
    last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero without the last line.
@@ -117,6 +137,12 @@ RECIPES = {
 SELF_CONTACT_CLIPS = ("getup_facedown", "getup_faceup", "backflip")
 SELF_STATES = 256    # eval inputs kept per step for the self-contact check
 BACKFLIP_STEP = 201410
+ENGINE_ENVS = 256        # engine-vs-kernel checks
+HELD_ITERS = 4           # held-torque PD training iterations through cli train
+HELD_TIME_ENVS = (2048, 4096)
+ENGINE_EVAL_STEPS = 100  # the walk eval on the engine (the kernel's eval takes EVAL_STEPS)
+ENGINE_REWARD_TOL = 0.005
+ENGINE_TIME_STEPS = 3    # engine steps timed with CUDA events
 
 
 def log(phase, msg=""):
@@ -209,9 +235,9 @@ def time_launch(kstep, q, v, u, n=20):
     return e0.elapsed_time(e1) / n
 
 
-def profile_eval(env, policy, stats, gen):
-    """``torch.profiler`` over PROFILE_STEPS steps of the eval loop (the body
-    of ``train.evaluate``) after 3 warm-up steps: the top 10 device
+def profile_eval(env, policy, stats, gen, steps=PROFILE_STEPS, warmup=3):
+    """``torch.profiler`` over ``steps`` steps of the eval loop (the body
+    of ``train.evaluate``) after ``warmup`` steps: the top 10 device
     operations by time, the device-busy share of the window (union of the
     device intervals over the span of all traced events) and the device
     kernels per env step. None when the trace holds no device time."""
@@ -221,16 +247,17 @@ def profile_eval(env, policy, stats, gen):
 
     from pbrl_tpu_torch.train import running_stats
 
+    @torch.no_grad()
     def run(state, n):
         for _ in range(n):
             mean, _ = policy(running_stats.normalize(stats, state.obs))
             state = env.step(state, mean)
         return state
 
-    state = run(env.reset(EVAL_ENVS, gen), 3)
+    state = run(env.reset(EVAL_ENVS, gen), warmup)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run(state, PROFILE_STEPS)
+        run(state, steps)
         torch.cuda.synchronize()
     events = list(prof.events())
     dev = [e for e in events if e.device_type == DeviceType.CUDA]
@@ -253,10 +280,10 @@ def profile_eval(env, policy, stats, gen):
     t1 = max(e.time_range.end for e in events)
     kernels = [e for e in dev if not e.name.lower().startswith(("memcpy", "memset"))]
     return {"window_ms": (t1 - t0) / 1e3, "busy_share": busy / (t1 - t0),
-            "device_ms_per_step": sum(per_name.values()) / 1e3 / PROFILE_STEPS,
-            "kernels_per_step": len(kernels) / PROFILE_STEPS,
-            "copies_per_step": (len(dev) - len(kernels)) / PROFILE_STEPS,
-            "top": [(name, us / 1e3 / PROFILE_STEPS) for name, us in top]}
+            "device_ms_per_step": sum(per_name.values()) / 1e3 / steps,
+            "kernels_per_step": len(kernels) / steps,
+            "copies_per_step": (len(dev) - len(kernels)) / steps,
+            "top": [(name, us / 1e3 / steps) for name, us in top]}
 
 
 def needed(sp, q, v, u):
@@ -289,17 +316,18 @@ def bound(sp, flop_per_env, B):
 def watch_endings(env, keep=0):
     """Within the block, record what each ``env.step`` ends: the start
     times, each step's done and fall flags and end time, and whether the
-    kernel's raw outputs were finite (the env's NaN quarantine turns a
-    non-finite state into a fall); with ``keep``, also the kernel's inputs
-    of the first ``keep`` envs at every step. A few small device operations
-    per step; no copy to the host."""
-    kstep, step = env._kstep, env.step
+    physics' raw outputs were finite (the env's NaN quarantine turns a
+    non-finite state into a fall); with ``keep``, also the physics' inputs
+    (the kernel's, with the kernel backend) of the first ``keep`` envs at
+    every step. A few small device operations per step; no copy to the
+    host."""
+    physics, step = env._physics, env.step
     rec = {"env": env, "t0": None, "done": [], "fall": [], "bad": [], "time": [], "inputs": []}
 
     def spy(q, v, u):
         if keep:
             rec["inputs"].append(tuple(x[:keep].clone() for x in (q, v, u)))
-        out = kstep(q, v, u)
+        out = physics(q, v, u)
         rec["bad"].append(~(out[0].isfinite().all(1) & out[1].isfinite().all(1)))
         return out
 
@@ -312,12 +340,11 @@ def watch_endings(env, keep=0):
         rec["time"].append(out.time)
         return out
 
-    env._kstep, env.step = spy, watched
+    env._physics, env.step = spy, watched
     try:
         yield rec
     finally:
-        env._kstep = kstep
-        del env.step
+        del env._physics, env.step
 
 
 ENDING_CAUSES = ("fall", "nonfinite", "clip_end", "other")
@@ -552,7 +579,6 @@ def recipes_phase(dev, smi, model):
     through the command line (module docstring). Returns the numbers the
     report line needs."""
     import dataclasses
-    import io
     import os
     import shutil
 
@@ -655,16 +681,11 @@ def recipes_phase(dev, smi, model):
     log("finetune backflip", f"imported step {step0}, Adam count {count0}, env_steps "
         f"{checkpoint.restore(ft_dir)['env_steps']}; python -m pbrl_tpu_torch.cli "
         + " ".join(argv))
-    text = io.StringIO()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    with track_steps() as built, contextlib.redirect_stdout(text):
-        cli.main(argv)
+    lines, built = run_cli(argv)
     torch.cuda.synchronize()
     ft_s = time.perf_counter() - t
-    lines = [json.loads(ln) for ln in text.getvalue().splitlines() if ln.startswith("{")]
-    for ln in lines:
-        print("[smoke]   " + json.dumps(ln), flush=True)
     history = [ln for ln in lines if "iteration" in ln]
     ft_launches = sum(k.launches for k in built)
     ft_run = checkpoint.load_run_config(ft_dir)
@@ -700,6 +721,269 @@ def recipes_phase(dev, smi, model):
     shutil.rmtree(ft_dir, ignore_errors=True)
     out["ft_launches"] = ft_launches
     return out
+
+
+def run_cli(argv):
+    """``cli.main(argv)`` with its standard output captured: the JSON lines
+    it printed, and the policy-step wrappers the envs it built own."""
+    import io
+
+    from pbrl_tpu_torch import cli
+
+    text = io.StringIO()
+    with track_steps() as built, contextlib.redirect_stdout(text):
+        cli.main(argv)
+    lines = [json.loads(ln) for ln in text.getvalue().splitlines() if ln.startswith("{")]
+    for ln in lines:
+        print("[smoke]   " + json.dumps(ln), flush=True)
+    return lines, built
+
+
+def backends_agree(model, clip, cfg, action, lift=0.0, seed=7):
+    """The engine backend against the kernel backend from the same reset
+    states (ENGINE_ENVS envs), 2 policy steps: max |dqpos|, the per-env
+    qvel error distribution, max |dreward|, and the kernel's launches."""
+    import numpy as np
+    import torch
+
+    from pbrl_tpu_torch.envs import MimicVecEnv
+
+    dev = clip.qpos.device
+    kenv = MimicVecEnv(model, clip, cfg, backend="kernel", device=dev)
+    xenv = MimicVecEnv(model, clip, cfg, backend="xla", device=dev)
+    check(not hasattr(xenv, "_kstep"), "the engine backend built a kernel")
+    s = kenv.reset(ENGINE_ENVS, torch.Generator(device=dev).manual_seed(seed))
+    if lift:
+        s = s.replace(qpos=torch.cat([s.qpos[:, :2], s.qpos[:, 2:3] + lift, s.qpos[:, 3:]],
+                                     1).contiguous())
+    ks = xs = s
+    kenv._kstep.launches = 0
+    with torch.no_grad():
+        for _ in range(2):
+            ks = kenv.step(ks, action)
+            xs = xenv.step(xs, action)
+    torch.cuda.synchronize()
+    dv_env = (ks.qvel - xs.qvel).abs().amax(dim=1).cpu().numpy()
+    return {"dq": float((ks.qpos - xs.qpos).abs().max()),
+            "dv_med": float(np.median(dv_env)), "dv_p90": float(np.percentile(dv_env, 90)),
+            "dv_max": float(dv_env.max()), "dr": float((ks.reward - xs.reward).abs().max()),
+            "finite": bool(torch.isfinite(xs.qpos).all() and torch.isfinite(xs.qvel).all()),
+            "kernel_launches": kenv._kstep.launches}
+
+
+def engine_phase(dev, smi, model, clip, walk_metrics):
+    """Phase 7: the engine backend, held-torque PD, the controllers, the
+    walk eval on the engine and cli replay (module docstring). Returns the
+    numbers the report line needs."""
+    import dataclasses
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pbrl_tpu_torch.cli import _env_config
+    from pbrl_tpu_torch.envs import EnvConfig, MimicVecEnv
+    from pbrl_tpu_torch.mocap import reference_state
+    from pbrl_tpu_torch.ops import mimic_kernel
+    from pbrl_tpu_torch.train import checkpoint, evaluate, ppo, running_stats
+    from pbrl_tpu_torch.utils.configio import dict_to_config
+    from pbrl_tpu_torch.viz import load_trajectory
+
+    t_phase = time.time()
+    # 1. the engine against the kernel, same reset states
+    B = ENGINE_ENVS
+    u_tq = (20.0 * torch.sin(torch.arange(B * model.nu, device=dev, dtype=torch.float32))
+            ).reshape(B, model.nu)
+    zero = torch.zeros(B, model.nu, device=dev)
+    noisy = dict(reference_state_init=True, rsi_noise_qpos=0.05, rsi_noise_qvel=0.5)
+    cases = (("absolute", EnvConfig(**noisy), zero, 0.0),
+             ("torque", EnvConfig(action_mode="torque", **noisy), u_tq, 0.0),
+             ("held-pd", EnvConfig(pd_per_substep=False, **noisy), zero, 0.0),
+             ("airborne", EnvConfig(early_termination=False, **noisy), zero, 1.0),
+             ("held-pd airborne", EnvConfig(early_termination=False, pd_per_substep=False,
+                                            **noisy), zero, 1.0))
+    agree = {}
+    for name, cfg, act, lift in cases:
+        r = backends_agree(model, clip, cfg, act, lift=lift)
+        log(f"engine vs kernel {name}", fmt(r))
+        check(r["finite"], f"{name}: engine output not finite")
+        check(r["kernel_launches"] == 2, f"{name}: kernel launches {r['kernel_launches']} != 2")
+        if lift:
+            check(r["dq"] < 5e-4, f"{name}: engine qpos diverged {r['dq']}")
+            check(r["dv_max"] < 1.5e-2, f"{name}: engine qvel diverged {r['dv_max']}")
+        else:
+            check(r["dq"] < 5e-3, f"{name}: engine qpos diverged {r['dq']}")
+            check(r["dv_med"] < 1e-2, f"{name}: engine qvel median diverged {r['dv_med']}")
+            check(r["dv_p90"] < 0.15, f"{name}: engine qvel p90 diverged {r['dv_p90']}")
+            check(r["dv_max"] < 1.0, f"{name}: engine qvel max diverged {r['dv_max']}")
+            check(r["dr"] < 5e-2, f"{name}: engine reward diverged {r['dr']}")
+        agree[name] = r
+
+    # 2. held-torque PD: training through the command line, the kernel in torque mode
+    _, _, run = checkpoint.load_policy(checkpoint.bundled_policy("walk"), device=dev)
+    walk_cfg = dict_to_config(ppo.TrainConfig, run["train_config"])
+    held_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_held")
+    shutil.rmtree(held_dir, ignore_errors=True)
+    steps = HELD_ITERS * walk_cfg.steps_per_iteration
+    argv = ["train", "--clip", "walk", "--checkpoint-dir", held_dir, "--total-steps",
+            str(steps), "--lr", str(walk_cfg.learning_rate), "--train-set",
+            f"entropy_cost={walk_cfg.entropy_cost}", "--env-set", "pd_per_substep=false"]
+    log("held-pd train", "python -m pbrl_tpu_torch.cli " + " ".join(argv) + f" | {smi}")
+    t = time.perf_counter()
+    lines, built = run_cli(argv)
+    torch.cuda.synchronize()
+    held_s = time.perf_counter() - t
+    history = [ln for ln in lines if "iteration" in ln]
+    held_launches = sum(k.launches for k in built)
+    held_run = checkpoint.load_run_config(held_dir)
+    check(held_run["env_config"]["pd_per_substep"] is False,
+          f"the run config does not carry pd_per_substep: false: {held_run['env_config']}")
+    check(dict_to_config(ppo.TrainConfig, held_run["train_config"])
+          == dataclasses.replace(walk_cfg, total_env_steps=steps),
+          f"not the walk run's TrainConfig: {held_run['train_config']}")
+    check(len(history) == HELD_ITERS and all(
+        np.isfinite(v) for h in history for v in h.values() if isinstance(v, (int, float))),
+        f"non-finite or missing held-pd metrics: {history}")
+    check(held_launches == HELD_ITERS * walk_cfg.unroll_length,
+          f"held-pd kernel launches {held_launches} != {HELD_ITERS * walk_cfg.unroll_length}")
+    roll_ms = [h["rollout_s"] / walk_cfg.unroll_length * 1e3 for h in history]
+    log("held-pd train", f"{HELD_ITERS} iterations in {held_s:.2f}s, {held_launches} kernel "
+        "launches; rollout ms per step at 2048 envs: " + ", ".join(f"{x:.3f}" for x in roll_ms)
+        + " | " + smi)
+
+    policy, stats = checkpoint.load_policy_from_dir(held_dir, device=dev)
+    henv = MimicVecEnv(model, clip, dict_to_config(EnvConfig, held_run["env_config"]),
+                       device=dev)
+    n_time = max(HELD_TIME_ENVS)
+    with torch.no_grad():
+        st = henv.reset(n_time, torch.Generator(device=dev).manual_seed(3))
+        for _ in range(walk_cfg.unroll_length):  # rollout states of the trained policy
+            mean, _ = policy(running_stats.normalize(stats, st.obs))
+            st = henv.step(st, mean)
+        mean, _ = policy(running_stats.normalize(stats, st.obs))
+        tau = henv._held_tau(st.qpos, st.qvel, henv._target(st.qpos, st.time, mean))
+    q, v, tau = (x.contiguous() for x in (st.qpos, st.qvel, tau))
+    ks, sp = henv._kstep, henv._kspec
+    check(sp.mode == "torque", f"the held-pd kernel spec is in mode {sp.mode}")
+    plain = lambda a, b, c: mimic_kernel.mimic_step_plain(sp, a, b, c)
+    r_held = compare(ks, plain, *(x[:B].contiguous() for x in (q, v, tau)), steps=1)
+    log("check held-pd torque", f"{B} rollout states, the held torques, 1 step: {fmt(r_held)}")
+    check_errors("held-pd torque", r_held)
+    need = needed(sp, *(x[:B] for x in (q, v, tau)))
+    torque_ms, torque_bound = {}, {}
+    for n in HELD_TIME_ENVS:
+        torque_ms[n] = time_launch(ks, q[:n].contiguous(), v[:n].contiguous(),
+                                   tau[:n].contiguous())
+        torque_bound[n], by = bound(sp, need["flop_per_env"], n)
+        log("held-pd kernel", f"torque mode, rollout states, B={n}: {torque_ms[n]:.4f} "
+            f"ms/launch; touching per env and substep {need['ground']:.3f} ground, "
+            f"{need['self']:.3f} self contacts; {need['flop_per_env']:.1f} FLOP/env/step -> "
+            f"bound {torque_bound[n]:.5f} ms ({by}) | {smi}")
+    t = time.perf_counter()
+    for _ in range(5):
+        henv._held_tau(st.qpos, st.qvel, mean)
+    torch.cuda.synchronize()
+    log("held-pd tau", f"_held_tau at B={n_time}: {(time.perf_counter() - t) / 5 * 1e3:.2f} ms "
+        f"(host clock) | {smi}")
+    shutil.rmtree(held_dir, ignore_errors=True)
+
+    # 3. the other controllers on the engine, through the command line
+    for controller in ("standard_pd", "inverse_dynamics_pd"):
+        argv = ["train", "--clip", "walk", "--backend", "xla", "--controller", controller,
+                "--total-steps", str(walk_cfg.steps_per_iteration), "--lr",
+                str(walk_cfg.learning_rate)]
+        t = time.perf_counter()
+        lines, built = run_cli(argv)
+        torch.cuda.synchronize()
+        hist = [ln for ln in lines if "iteration" in ln]
+        check(len(hist) == 1 and all(np.isfinite(v) for v in hist[0].values()
+                                     if isinstance(v, (int, float))),
+              f"{controller}: non-finite or missing metrics {hist}")
+        check(not built, f"{controller}: the engine backend built a kernel")
+        log(f"engine train {controller}", f"1 iteration of {walk_cfg.num_envs} x "
+            f"{walk_cfg.unroll_length} in {time.perf_counter() - t:.2f}s, 0 kernel launches, "
+            f"rollout {hist[0]['rollout_s'] / walk_cfg.unroll_length * 1e3:.1f} ms/step | {smi}")
+
+    # 4. the walk policy evaluated on the engine
+    policy, stats, run = checkpoint.load_policy(checkpoint.bundled_policy("walk"), device=dev)
+
+    xenv = MimicVecEnv(model, clip, _env_config(run), backend="xla", device=dev)
+    t = time.perf_counter()
+    with watch_endings(xenv) as rec:
+        m_x = {k: float(v) for k, v in evaluate(
+            xenv, policy, stats, num_envs=EVAL_ENVS, num_steps=ENGINE_EVAL_STEPS,
+            generator=torch.Generator(device=dev).manual_seed(0)).items()}
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t
+    if ENGINE_EVAL_STEPS == EVAL_STEPS:
+        m_k = walk_metrics
+    else:
+        kenv = MimicVecEnv(model, clip, _env_config(run), device=dev)
+        m_k = {k: float(v) for k, v in evaluate(
+            kenv, policy, stats, num_envs=EVAL_ENVS, num_steps=ENGINE_EVAL_STEPS,
+            generator=torch.Generator(device=dev).manual_seed(0)).items()}
+    ended = endings(rec)
+    log("engine eval", f"{EVAL_ENVS} envs x {ENGINE_EVAL_STEPS} steps in {eval_s:.2f}s "
+        f"({eval_s / ENGINE_EVAL_STEPS * 1e3:.1f} ms/step, host clock): engine "
+        + json.dumps(m_x) + "; kernel " + json.dumps(m_k) + f"; {len(ended)} envs end early, "
+        "by cause " + json.dumps({c: sum(e["cause"] == c for e in ended) for c in ENDING_CAUSES})
+        + f" | {smi}")
+    print("[smoke]   early: " + json.dumps(ended[:20]), flush=True)
+    check(all(np.isfinite(v) for v in m_x.values()), f"non-finite engine eval {m_x}")
+    check(abs(m_x["eval_reward"] - m_k["eval_reward"]) < ENGINE_REWARD_TOL,
+          f"engine eval_reward {m_x['eval_reward']} vs kernel {m_k['eval_reward']}")
+    with torch.no_grad():
+        st = xenv.reset(EVAL_ENVS, torch.Generator(device=dev).manual_seed(1))
+        mean, _ = policy(running_stats.normalize(stats, st.obs))
+        st = xenv.step(st, mean)
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(ENGINE_TIME_STEPS):
+            mean, _ = policy(running_stats.normalize(stats, st.obs))
+            st = xenv.step(st, mean)
+        e1.record()
+        torch.cuda.synchronize()
+    engine_ms = e0.elapsed_time(e1) / ENGINE_TIME_STEPS
+    # one profiled step: 17k device launches take the profiler a while to collect
+    prof = profile_eval(xenv, policy, stats, torch.Generator(device=dev).manual_seed(1),
+                        steps=1, warmup=1)
+    if prof is None:
+        log("engine profile", f"{engine_ms:.2f} ms per policy step at {EVAL_ENVS} envs (CUDA "
+            "events); torch.profiler recorded no device time")
+    else:
+        log("engine profile", f"{engine_ms:.2f} ms per policy step at {EVAL_ENVS} envs (CUDA "
+            f"events); 1 step: window {prof['window_ms']:.3f} ms, device busy "
+            f"{prof['busy_share']:.4f}, device {prof['device_ms_per_step']:.4f} ms/step, "
+            f"{prof['kernels_per_step']:.1f} kernels and {prof['copies_per_step']:.1f} copies "
+            f"per step | {smi}")
+        for name, ms in prof["top"]:
+            print(f"[smoke]   {ms:9.4f} ms/step  {name[:110]}", flush=True)
+
+    # 5. cli replay on the card
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_replay.npz")
+    lines, built = run_cli(["replay", "--clip", "walk", "--out", out])
+    traj = load_trajectory(out)
+    pdt = EnvConfig().policy_dt
+    frames = int(float(clip.cycle_time) / pdt) + 1
+    t_f = torch.zeros(1, device=dev)
+    want = []
+    for _ in range(frames):  # the env's own clock: policy_dt added per step in float32
+        t_f = t_f + pdt
+        want.append(reference_state(clip, t_f)[0][0])
+    want = torch.stack(want).cpu().numpy()
+    err = float(np.abs(traj["qpos"] - want).max()) if traj["qpos"].shape == want.shape else None
+    log("replay", f"cli replay --clip walk: {traj['qpos'].shape[0]} frames (want {frames}), "
+        f"max |qpos - reference| {err}")
+    check(traj["qpos"].shape == (frames, model.nq) and err < 1e-6 and not built,
+          "cli replay did not play the clip's reference")
+    os.remove(out)
+    phase_s = time.time() - t_phase
+    log("engine phase", f"{phase_s:.1f}s")
+    return {"held_launches": held_launches, "torque_ms": torque_ms, "torque_bound": torque_bound,
+            "held_err": max(r_held[k] for k in ("dq", "dv_max", "dxpos", "dxquat", "dfall")),
+            "engine_ms": engine_ms}
 
 
 def fmt(d):
@@ -908,7 +1192,10 @@ def main():
     # 6. the other shipped recipes
     rc = recipes_phase(dev, smi, model)
 
-    # 7. report
+    # 7. the engine, held-torque PD, the controllers, replay
+    en = engine_phase(dev, smi, model, clip, metrics)
+
+    # 8. report
     print(json.dumps({"kernels": [{
         "name": "mimic_step", "route": "cuda",
         "source": "pbrl_tpu_torch/csrc/mimic_step.cu",
@@ -920,7 +1207,9 @@ def main():
         "recipe_launches": rc["launches"], "self_contact_ms": rc["self_ms"],
         "self_contact_bound_ms": rc["self_bound_ms"],
         "self_contact_max_abs_err": rc["self_err"], "backflip_finetune_launches":
-        rc["ft_launches"],
+        rc["ft_launches"], "held_launches": en["held_launches"],
+        "torque_mode_ms": en["torque_ms"], "torque_mode_bound_ms": en["torque_bound"],
+        "torque_mode_max_abs_err": en["held_err"],
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

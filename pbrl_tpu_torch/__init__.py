@@ -7,5 +7,7 @@ module names so each counterpart is easy to find, and imports only
 
 The policy step of the vectorized mimic env is one hand-written CUDA
 kernel (``csrc/mimic_step.cu``, wrapped by :mod:`pbrl_tpu_torch.ops.
-mimic_kernel`); everything around it is plain PyTorch.
+mimic_kernel`); everything around it is plain PyTorch, the einsum engine
+(:mod:`pbrl_tpu_torch.engine`, the env's ``backend="xla"`` and the
+per-env envs) included.
 """

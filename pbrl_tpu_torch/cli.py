@@ -1,15 +1,25 @@
 """Command line of the port (counterpart of ``pbrl_tpu/cli.py``).
 
     python -m pbrl_tpu_torch.cli info
+    python -m pbrl_tpu_torch.cli replay --clip walk --out walk.npz
     python -m pbrl_tpu_torch.cli train --clip walk --checkpoint-dir runs/walk
     python -m pbrl_tpu_torch.cli eval --clip walk --checkpoint-dir runs/walk
+
+``info`` prints the devices, the model's sizes, the bundled clips and the
+registered environments. ``replay`` plays a clip back kinematically
+(:class:`~pbrl_tpu_torch.envs.replay.ReplayEnv`) for ``--steps`` policy
+steps (default one cycle) and writes the qpos trajectory to ``--out``;
+``--video`` is refused, as rendering needs MuJoCo.
 
 ``train`` runs PPO (:func:`pbrl_tpu_torch.train.ppo.train`) with pbrl_tpu's
 flags, ``--env-set`` and ``--train-set`` included; it prints one JSON line
 per iteration and a last ``{"final": ...}`` line. With ``--checkpoint-dir``
 it writes ``run_config.json`` and checkpoints there and resumes from the
-latest one. One process on one device: the multi-process flags and any
-``--backend`` but ``auto`` are refused.
+latest one. ``--backend`` picks the physics: ``auto`` or ``kernel`` the
+policy-step kernel, ``xla`` the einsum engine in plain PyTorch (pbrl_tpu's
+name for its engine backend); ``--controller`` takes all four PD laws (the
+kernel implicit and Stable PD only). One process on one device: the
+multi-process flags are refused.
 
 ``eval`` rebuilds the env from the run configuration (``run_config.json``
 in ``--checkpoint-dir``, which must hold one, else the copy inside the
@@ -84,6 +94,7 @@ def _float_or_str(x):
 def cmd_info(args):
     import torch
 
+    from pbrl_tpu_torch.envs import registered_environments
     from pbrl_tpu_torch.mocap import bundled_clip_names
     from pbrl_tpu_torch.model import humanoid_model
 
@@ -96,7 +107,28 @@ def cmd_info(args):
         if cuda else [],
         "model": {"nq": m.nq, "nv": m.nv, "nu": m.nu, "nbody": m.nbody},
         "clips": bundled_clip_names(),
+        "environments": registered_environments(),
     }))
+    return 0
+
+
+def cmd_replay(args):
+    if args.video:
+        raise SystemExit("--video: rendering needs host MuJoCo, which the port does not "
+                         "use; write the trajectory with --out and render it elsewhere")
+    _require_device(args.device)
+
+    from pbrl_tpu_torch.envs import ReplayEnv
+    from pbrl_tpu_torch.mocap import load_clip
+    from pbrl_tpu_torch.model import humanoid_model
+    from pbrl_tpu_torch.viz import dump_trajectory
+
+    env = ReplayEnv(humanoid_model(), load_clip(args.clip, device=args.device))
+    steps = args.steps or int(float(env.clip.cycle_time) / env.config.policy_dt) + 1
+    states = env.rollout(steps)
+    qpos = states.pipeline.qpos[:, 0].cpu().numpy()
+    dump_trajectory(args.out, qpos, 1.0 / env.config.policy_dt)
+    print(json.dumps({"replayed": args.clip, "frames": steps, "out": args.out}))
     return 0
 
 
@@ -107,9 +139,6 @@ def cmd_train(args):
         if value is not None:
             raise SystemExit(f"{flag}: multi-process training is not ported yet "
                              "(the port trains on one card)")
-    if args.backend != "auto":
-        raise SystemExit(f"--backend {args.backend}: the port has one physics backend, "
-                         "its policy-step kernel (leave --backend auto)")
     _require_device(args.device)
 
     from pbrl_tpu_torch.envs import EnvConfig, MimicVecEnv
@@ -128,7 +157,7 @@ def cmd_train(args):
                         pose_termination=args.pose_termination)
     env_cfg = _overrides(env_cfg, args.env_set, "--env-set", _float_or_str)
     env = MimicVecEnv(humanoid_model(), load_clip(args.clip, device=args.device), env_cfg,
-                      device=args.device)
+                      backend=args.backend, device=args.device)
     cfg = TrainConfig(num_envs=args.num_envs, unroll_length=args.unroll_length,
                       total_env_steps=args.total_steps, learning_rate=args.lr,
                       gamma=args.gamma, seed=args.seed)
@@ -184,6 +213,14 @@ def build_parser():
     sp = sub.add_parser("info", help="print devices, model dims, clips")
     sp.set_defaults(fn=cmd_info)
 
+    sp = sub.add_parser("replay", help="kinematic clip playback -> trajectory")
+    sp.add_argument("--clip", default="walk", help="bundled clip name or a file path")
+    sp.add_argument("--steps", type=int, default=0, help="frames (default: one cycle)")
+    sp.add_argument("--out", default="replay.npz")
+    sp.add_argument("--video", default="", help="refused: rendering needs MuJoCo")
+    sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    sp.set_defaults(fn=cmd_replay)
+
     sp = sub.add_parser("train", help="PPO imitation training")
     sp.add_argument("--clip", default="walk", help="bundled clip name or a file path")
     sp.add_argument("--num-envs", type=int, default=2048)
@@ -211,7 +248,9 @@ def build_parser():
                     help="override any TrainConfig field (repeatable), e.g. "
                          "--train-set hidden=512,256")
     sp.add_argument("--torque-scale", type=float, default=2.0)
-    sp.add_argument("--backend", default="auto", choices=["auto", "kernel", "xla"])
+    sp.add_argument("--backend", default="auto", choices=["auto", "kernel", "xla"],
+                    help="physics: the policy-step kernel (auto, kernel) or the einsum "
+                         "engine in plain PyTorch (xla)")
     sp.add_argument("--checkpoint-dir", default=None)
     sp.add_argument("--quiet", dest="verbose", action="store_false")
     sp.add_argument("--distributed", action="store_true")

@@ -1,18 +1,38 @@
-"""Environment configuration and the batched env state.
+"""Environment protocol, configuration, states and registry.
 
 Counterpart of ``pbrl_tpu/envs/base.py``: ``EnvConfig`` keeps the same
 fields and defaults (the defaults are the main path: 60 Hz policy over
 500 Hz physics, implicit PD re-solved every substep, 'step' self-contact
-mass, absolute PD targets, torque scale 2.0), and ``VecState`` is the
-batched state of :class:`~pbrl_tpu_torch.envs.vec.MimicVecEnv`.
+mass, absolute PD targets, torque scale 2.0). ``State`` is the state of the
+per-env environments (``ReplayEnv``, ``MimicEnv``) with engine ``Data``
+inside; ``VecState`` is the lean state of
+:class:`~pbrl_tpu_torch.envs.vec.MimicVecEnv`. pbrl_tpu's states hold one
+env and are batched by ``vmap``; these carry a leading env axis.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Any, Callable, Dict
 
 import torch
+
+from pbrl_tpu_torch.engine.data import Data
+
+
+@dataclasses.dataclass(frozen=True)
+class State:
+    """RL state of a batch of envs."""
+
+    pipeline: Data                    # physics state and derived caches
+    obs: torch.Tensor                 # (B, obs_dim)
+    reward: torch.Tensor              # (B,)
+    done: torch.Tensor                # (B,) 1.0 = episode over
+    metrics: Dict[str, torch.Tensor]  # (B,) each, updated every step
+    info: Dict[str, Any]              # episode bookkeeping
+
+    def replace(self, **kw) -> "State":
+        return dataclasses.replace(self, **kw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,3 +244,62 @@ class VecState:
 
     def replace(self, **kw) -> "VecState":
         return dataclasses.replace(self, **kw)
+
+
+def variant1(**kw) -> EnvConfig:
+    return EnvConfig(policy_dt=1.0 / 60.0, physics_dt=0.002, **kw)
+
+
+def variant2(**kw) -> EnvConfig:
+    return EnvConfig(policy_dt=1.0 / 30.0, physics_dt=1.0 / 1200.0, **kw)
+
+
+class Env:
+    """Environment protocol: reset/step plus static sizes."""
+
+    def reset(self, *args, **kwargs) -> State:
+        raise NotImplementedError
+
+    def step(self, state: State, action: torch.Tensor) -> State:
+        raise NotImplementedError
+
+    @property
+    def observation_size(self) -> int:
+        raise NotImplementedError
+
+    @property
+    def action_size(self) -> int:
+        raise NotImplementedError
+
+
+_REGISTRY: Dict[str, Callable[..., Env]] = {}
+
+
+def register_environment(name: str, ctor: Callable[..., Env]) -> None:
+    """Register an env constructor under ``name``."""
+    _REGISTRY[name] = ctor
+
+
+def get_environment(name: str, **kwargs) -> Env:
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown environment {name!r}; registered: {sorted(_REGISTRY)}")
+    return _REGISTRY[name](**kwargs)
+
+
+def registered_environments():
+    return sorted(_REGISTRY)
+
+
+def stack_states(states):
+    """Stack a list of equally shaped states (dataclasses, dicts, tensors)
+    along a new leading axis."""
+    first = states[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(states)
+    if isinstance(first, dict):
+        return {k: stack_states([s[k] for s in states]) for k in first}
+    if dataclasses.is_dataclass(first):
+        return dataclasses.replace(first, **{
+            f.name: stack_states([getattr(s, f.name) for s in states])
+            for f in dataclasses.fields(first)})
+    return first

@@ -1,20 +1,21 @@
 """Vectorized mimic environment: batch-first step over the policy-step kernel.
 
-Counterpart of ``pbrl_tpu/envs/vec.py::MimicVecEnv`` (its kernel path).
-The whole env batch advances through ONE call of the policy-step wrapper
-per policy step (:mod:`pbrl_tpu_torch.ops.mimic_kernel`: the CUDA kernel
-for tensors on the card, its plain version for tensors on the CPU); the
-reference lookup, reward terms, termination and observation assembly are
-plain PyTorch on the same device. Every ``EnvConfig`` option of the
-shipped recipes is ported: the heading-frame root offset and link
-observations, the aerial-window and drift reward shaping, the takeoff-state
-curriculum of ``auto_reset``, and an actuator mask folded into the gains.
+Counterpart of ``pbrl_tpu/envs/vec.py::MimicVecEnv``. With the kernel
+backend (``backend="kernel"``, or ``"auto"``) the whole env batch advances
+through ONE call of the policy-step wrapper per policy step
+(:mod:`pbrl_tpu_torch.ops.mimic_kernel`: the CUDA kernel for tensors on
+the card, its plain version for tensors on the CPU). ``backend="xla"``
+keeps pbrl_tpu's name, so flags and run configs carry over; here it means
+the einsum engine (:mod:`pbrl_tpu_torch.engine`) in plain PyTorch on the
+env's device, with every controller. The reference lookup, reward terms,
+termination and observation assembly are plain PyTorch on the same device.
 
-Not ported yet, and refused with ``NotImplementedError``: what needs the
-einsum engine (``backend="xla"``, the held-torque PD path
-``pd_per_substep=False``, the standard and inverse-dynamics PD
-controllers). Where pbrl_tpu computes body frames with that engine (the
-link observation of a reset state), the port runs the field program's FK.
+Held-torque PD (``pd_per_substep=False``, the reference's once-per-policy-
+step PD): ``_held_tau`` evaluates one Stable-PD torque per env from the
+pre-step state on the engine (``forward_smooth``, one ``(M + dt KD)``
+solve, clamp, mask), and the kernel runs in its ``torque`` mode. As in
+pbrl_tpu, the kernel backend implements implicit and Stable PD only, and
+held PD the Stable-PD law only; other combinations raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -25,13 +26,21 @@ import numpy as np
 import torch
 
 from pbrl_tpu_torch.control import Gains, default_gains
+from pbrl_tpu_torch.control import pd as ctrl
+from pbrl_tpu_torch.engine.data import make_data
+from pbrl_tpu_torch.engine.forward import forward_smooth
+from pbrl_tpu_torch.engine.forward import step as engine_step
+from pbrl_tpu_torch.engine.kinematics import kinematics as run_kinematics
 from pbrl_tpu_torch.envs import humanoid_task as task
 from pbrl_tpu_torch.envs.base import EnvConfig, VecState
+from pbrl_tpu_torch.envs.mimic import env_model, gains_on, scaled_gains
 from pbrl_tpu_torch.maths import quaternion as quat
 from pbrl_tpu_torch.mocap.clip import (MotionClip, phase, reference_aux,
                                        reference_frame_index, reference_state)
 from pbrl_tpu_torch.model.spec import Model
 from pbrl_tpu_torch.ops.mimic_kernel import build_mimic_step
+
+BACKENDS = ("auto", "kernel", "xla")
 
 
 def _to(clip: MotionClip, device) -> MotionClip:
@@ -42,7 +51,8 @@ def _to(clip: MotionClip, device) -> MotionClip:
 
 
 class MimicVecEnv:
-    """Batch-first DeepMimic imitation env over the policy-step kernel."""
+    """Batch-first DeepMimic imitation env over the policy-step kernel or
+    the engine."""
 
     is_vectorized = True
 
@@ -52,39 +62,30 @@ class MimicVecEnv:
         clip: MotionClip,
         config: EnvConfig = EnvConfig(),
         gains: Optional[Gains] = None,
-        backend: str = "kernel",
+        backend: str = "auto",
         actuator_mask=None,
         device="cuda",
     ):
-        if backend != "kernel":
-            raise NotImplementedError(
-                f"backend={backend!r} needs the einsum engine, not ported yet")
-        if not config.pd_per_substep and config.action_mode != "torque":
-            raise NotImplementedError(
-                "held-torque PD (pd_per_substep=False) needs the einsum engine")
-        if config.controller not in ("implicit_pd", "stable_pd"):
-            raise NotImplementedError(
-                f"controller {config.controller!r} needs the einsum engine")
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+        backend = "kernel" if backend == "auto" else backend
+        mode = "torque" if config.action_mode == "torque" else "pd"
+        self._held_pd = mode == "pd" and not config.pd_per_substep
+        if self._held_pd and config.controller not in ("implicit_pd", "stable_pd"):
+            raise ValueError("pd_per_substep=False implements the Stable-PD law; use "
+                             f"pd_per_substep=True for {config.controller!r}")
+        if backend == "kernel" and config.controller not in ("implicit_pd", "stable_pd"):
+            raise ValueError(f"the kernel backend implements implicit/Stable PD; use "
+                             f"backend='xla' for {config.controller!r}")
+        self.backend = backend
+        self._mode = mode
         self.device = torch.device(device)
-        model = model.replace(option=model.option.replace(
-            timestep=np.asarray(config.physics_dt, np.float32),
-            self_contact_mass=config.self_contact_mass))
-        if config.contact_tc_scale != 1.0 or config.friction_scale != 1.0:
-            opt = model.option
-            model = model.replace(
-                option=opt.replace(contact_timeconst=np.asarray(
-                    opt.contact_timeconst * config.contact_tc_scale, np.float32)),
-                geom_friction=np.asarray(model.geom_friction * config.friction_scale,
-                                         np.float32))
-        if not config.enforce_joint_limits:
-            model = model.replace(jnt_limited=tuple(False for _ in model.jnt_limited))
+        model = env_model(model, config)
         self.model = model
         self.config = config
         clip = _to(clip, self.device)
         self.clip = clip if clip.ee_pos is not None else task.augment_clip(model, clip)
-        gains = gains or default_gains()
-        gains = Gains(kp=np.asarray(gains.kp, np.float32) * np.float32(config.kp_scale),
-                      kd=np.asarray(gains.kd, np.float32) * np.float32(config.kd_scale))
+        gains = scaled_gains(gains or default_gains(), config)
         self.gains = gains
         dev = self.device
         kp, kd = gains.kp, gains.kd
@@ -95,11 +96,16 @@ class MimicVecEnv:
             mk = np.asarray(actuator_mask).astype(np.float32)
             kp, kd = kp * mk, kd * mk
             self._mask = torch.as_tensor(mk, device=dev)
+        self._gains_t = gains_on(gains, dev)
+        self._masked_gains_t = gains_on(Gains(kp, kd), dev)
         allowed = config.fall_contact_bodies or ("right_ankle", "left_ankle")
-        mode = "torque" if config.action_mode == "torque" else "pd"
-        self._kstep, self._kspec = build_mimic_step(
-            model, kp=kp, kd=kd, n_substeps=config.n_substeps, mode=mode,
-            fall_allowed_bodies=allowed, torque_scale=config.torque_limit_scale)
+        if backend == "kernel":
+            self._kstep, self._kspec = build_mimic_step(
+                model, kp=kp, kd=kd, n_substeps=config.n_substeps,
+                mode="torque" if self._held_pd else mode, fall_allowed_bodies=allowed,
+                torque_scale=config.torque_limit_scale)
+        else:
+            self._fall_mask = torch.as_tensor(task.fall_mask(model, allowed), device=dev)
 
         self._qposadr = torch.as_tensor(model.actuator_qposadr, device=dev)
         rng = model.jnt_range[list(model.actuator_jntid())]  # (nu, 2) actuator order
@@ -126,9 +132,15 @@ class MimicVecEnv:
         return self.model.nu
 
     # ------------------------------------------------------------------
+    def _fk_batch(self, qpos, qvel):
+        """Body frames by the engine's kinematics (a reset state; a step
+        reuses the physics' final-pose frames)."""
+        d = run_kinematics(self.model, make_data(self.model, qpos=qpos, qvel=qvel))
+        return d.xpos, d.xquat
+
     def _obs(self, qpos, qvel, t, xpos=None, xquat=None):
         """The observation; the link terms take the step's body frames, or
-        run the field program's FK when none are given (a reset state)."""
+        the engine's kinematics when none are given (a reset state)."""
         c = self.config
         parts = [qpos[:, 2:] if c.exclude_root_xy else qpos, qvel]
         if c.include_phase:
@@ -145,7 +157,7 @@ class MimicVecEnv:
                                       -sy * d[:, 0] + cy * d[:, 1]], dim=1))
         if c.include_link_obs:
             if xpos is None:
-                xpos, xquat = task.body_frames(self._kspec, qpos)
+                xpos, xquat = self._fk_batch(qpos, qvel)
             rel = xpos - qpos[:, None, :3]
             rx = cy[:, None] * rel[..., 0] + sy[:, None] * rel[..., 1]
             ry = -sy[:, None] * rel[..., 0] + cy[:, None] * rel[..., 1]
@@ -222,6 +234,68 @@ class MimicVecEnv:
         return torch.minimum(torch.maximum(action, self._act_lo[None]), self._act_hi[None])
 
     # ------------------------------------------------------------------
+    def _held_tau(self, qpos, qvel, target):
+        """One Stable-PD torque per env from the pre-step state (the
+        reference's per-policy-step PD): ``forward_smooth`` on the batch, one
+        ``(M + dt KD)`` solve per env, the torque envelope, the mask."""
+        m = self.model
+        d = forward_smooth(m, make_data(m, qpos=qpos, qvel=qvel))
+        tau = ctrl.clamp_torque(m, ctrl.stable_pd(m, d, target, self._gains_t),
+                                self.config.torque_limit_scale)
+        if self._mask is not None:
+            tau = ctrl.masked_torque(tau, self._mask)
+        return tau
+
+    def _engine_qfrc_fn(self, u):
+        """The per-substep controller of the engine backend for the step's
+        targets (or torques) ``u``."""
+        c = self.config
+        if self._mode == "pd" and not self._held_pd:
+            if c.controller in ("implicit_pd", "stable_pd"):
+                return lambda mm, dd: ctrl.implicit_pd(
+                    mm, dd, u, self._masked_gains_t, clamp_scale=c.torque_limit_scale)
+            law = (ctrl.standard_pd if c.controller == "standard_pd"
+                   else ctrl.inverse_dynamics_pd)
+
+            def qfrc_fn(mm, dd):
+                tau = ctrl.clamp_torque(mm, law(mm, dd, u, self._gains_t),
+                                        c.torque_limit_scale)
+                if self._mask is not None:
+                    tau = ctrl.masked_torque(tau, self._mask)
+                return ctrl.torque_to_qfrc(mm, tau)
+
+            return qfrc_fn
+        tau = ctrl.clamp_torque(self.model, u, c.torque_limit_scale)
+        if self._mask is not None:
+            tau = ctrl.masked_torque(tau, self._mask)
+        qfrc = ctrl.torque_to_qfrc(self.model, tau)
+        return lambda mm, dd: qfrc
+
+    def _physics(self, qpos, qvel, u):
+        """(qpos', qvel', xpos, xquat, fall) of one policy step through the
+        kernel or the engine."""
+        if self._held_pd:
+            u = self._held_tau(qpos, qvel, u)
+        if self.backend == "kernel":
+            return self._kstep(qpos, qvel, u.to(torch.float32).contiguous())
+        m = self.model
+        qfrc_fn = self._engine_qfrc_fn(u)
+        d = make_data(m, qpos=qpos, qvel=qvel)
+        step_mode = m.option.self_contact_mass == "step" and d.contact.dist.shape[1] > 0
+        held, fall = None, None
+        for i in range(self.config.n_substeps):
+            if step_mode:
+                # the entry substep's own solve gives the held self-contact masses
+                d, masses = engine_step(m, d, qfrc_fn=qfrc_fn, held_self=held,
+                                        use_held=i > 0, return_self_masses=True)
+                held = masses if i == 0 else held
+            else:
+                d = engine_step(m, d, qfrc_fn=qfrc_fn)
+            f = task.detect_fall(m, d, self._fall_mask).to(torch.float32)
+            fall = f if fall is None else torch.maximum(fall, f)
+        d = run_kinematics(m, d)
+        return d.qpos, d.qvel, d.xpos, d.xquat, fall
+
     def reset(self, num_envs: int, generator: Optional[torch.Generator] = None,
               t0: Optional[torch.Tensor] = None) -> VecState:
         """Reset ``num_envs`` envs. Start times come from ``t0`` when given
@@ -274,8 +348,7 @@ class MimicVecEnv:
             u = action if self._mask is None else action * self._mask[None]
         else:
             u = self._target(state.qpos, state.time, action)
-        qpos, qvel, xpos, xquat, fall = self._kstep(
-            state.qpos, state.qvel, u.to(torch.float32).contiguous())
+        qpos, qvel, xpos, xquat, fall = self._physics(state.qpos, state.qvel, u)
         t = state.time + c.n_substeps * c.physics_dt
 
         # NaN quarantine: a numerically poisoned env is terminated and

@@ -221,11 +221,19 @@ def test_evaluate_two_steps_cpu(walk):
     assert env._kstep.launches == 0
 
 
-def test_unported_paths_raise(walk):
-    m = humanoid_model()
-    with pytest.raises(NotImplementedError):
-        MimicVecEnv(m, walk, EnvConfig(), backend="xla", device="cpu")
-    with pytest.raises(NotImplementedError):
-        MimicVecEnv(m, walk, EnvConfig(pd_per_substep=False), device="cpu")
-    with pytest.raises(NotImplementedError):
-        MimicVecEnv(m, walk, EnvConfig(controller="standard_pd"), device="cpu")
+@pytest.mark.parametrize("cfg,backend", [
+    ({"controller": "standard_pd"}, "kernel"),
+    ({"controller": "inverse_dynamics_pd"}, "kernel"),
+    ({"controller": "standard_pd", "pd_per_substep": False}, "xla"),
+    ({"controller": "inverse_dynamics_pd", "pd_per_substep": False}, "xla"),
+], ids=["kernel_standard", "kernel_inverse", "held_standard", "held_inverse"])
+def test_remaining_refusals_match_jax(walk, cfg, backend):
+    """The refusals left are pbrl_tpu's own: the kernel backend implements
+    implicit and Stable PD only, held PD the Stable-PD law only; both
+    packages raise ValueError for the same configs."""
+    jc = jclip.load_clip("walk").replace(ee_pos=jnp.asarray(walk.ee_pos.numpy()),
+                                         com=jnp.asarray(walk.com.numpy()))
+    with pytest.raises(ValueError, match="implements"):
+        JMimicVecEnv(j_humanoid(), jc, JEnvConfig(**cfg), backend=backend)
+    with pytest.raises(ValueError, match="implements"):
+        MimicVecEnv(humanoid_model(), walk, EnvConfig(**cfg), backend=backend, device="cpu")

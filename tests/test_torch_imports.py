@@ -28,7 +28,15 @@ def test_every_module_listed():
                  "pbrl_tpu_torch.train.ppo", "pbrl_tpu_torch.cli",
                  "pbrl_tpu_torch.train.optim", "pbrl_tpu_torch.train.checkpoint",
                  "pbrl_tpu_torch.train.networks", "pbrl_tpu_torch.train.running_stats",
-                 "pbrl_tpu_torch.utils.configio"):
+                 "pbrl_tpu_torch.utils.configio", "pbrl_tpu_torch.maths.quaternion",
+                 "pbrl_tpu_torch.maths.spatial", "pbrl_tpu_torch.ops.linalg",
+                 "pbrl_tpu_torch.engine.data", "pbrl_tpu_torch.engine.kinematics",
+                 "pbrl_tpu_torch.engine.collision", "pbrl_tpu_torch.engine.dynamics",
+                 "pbrl_tpu_torch.engine.solver", "pbrl_tpu_torch.engine.forward",
+                 "pbrl_tpu_torch.control.pd", "pbrl_tpu_torch.control.trajectory",
+                 "pbrl_tpu_torch.envs.humanoid_task", "pbrl_tpu_torch.envs.base",
+                 "pbrl_tpu_torch.envs.replay", "pbrl_tpu_torch.envs.mimic",
+                 "pbrl_tpu_torch.viz.render"):
         assert want in mods
 
 

@@ -57,9 +57,9 @@ def walk_pair():
 
 def test_augment_clip_matches(walk_pair):
     jc, tc = walk_pair
-    # the port's FK is the field program's, pbrl_tpu's the einsum engine's
-    np.testing.assert_allclose(tc.ee_pos.numpy(), np.asarray(jc.ee_pos), atol=1e-5)
-    np.testing.assert_allclose(tc.com.numpy(), np.asarray(jc.com), atol=1e-5)
+    # both packages run their einsum engine's kinematics (2.4e-7 measured)
+    np.testing.assert_allclose(tc.ee_pos.numpy(), np.asarray(jc.ee_pos), atol=1e-6)
+    np.testing.assert_allclose(tc.com.numpy(), np.asarray(jc.com), atol=1e-6)
 
 
 @pytest.mark.parametrize("name", ["walk", "getup_faceup"])

@@ -93,7 +93,28 @@ with the seconds elapsed:
    (rewards within 0.005), with its early endings, its ms per policy step
    (CUDA events) and its device launches per step (``torch.profiler``);
    ``cli replay --clip walk`` against the clip's reference states;
-8. one JSON line describing the kernel, the card's ``nvidia-smi`` line, and
+8. APG (analytic policy gradients through the engine, ``train/apg.py``):
+   the window's policy gradient (walk's run config and learner state,
+   APG_GRAD_ENVS reset states, horizon APG_GRAD_HORIZON, the same noise) on
+   the card with TF32 allowed process-wide against the CPU's, airborne
+   (+1 m: relative difference <= 1e-4) and on the ground (cosine >= 0.99,
+   relative difference <= 5e-2); the fine-tune users ran
+   (``scripts/campaigns/campaign35.sh``'s probe: backflip's learner state
+   through ``cli train-apg`` at 2048 envs x horizon 8, lr 1e-4, reset every
+   iteration, action noise 0.1), cut to APG_ITERS iterations: finite loss
+   and ``grad_norm``, the critic bit-equal to the source's, the policy
+   moved, no kernel built or launched, backflip's env config in
+   ``run_config.json``, ``apg_config.json``, the checkpoint at step
+   APG_ITERS with ``env_steps`` continued, ``reward_mean`` within
+   APG_REWARD_TOL of pbrl_tpu's logged value, ``grad_norm`` beside the
+   log's, ms per iteration (forward, backward), env-steps/s and peak
+   memory; ``cli eval --checkpoint-dir`` of its output through the kernel
+   at RECIPE_ENVS x RECIPE_STEPS within backflip's bound; a
+   ``torch.profiler`` trace of one iteration at that config with its
+   window cut to APG_PROFILE_HORIZON step (device launches per window step
+   in the forward, the backward and the update, and the device-busy
+   share); ``cli replay`` of the DiffMimic clip against its reference;
+9. one JSON line describing the kernel, the card's ``nvidia-smi`` line, and
    last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero without the last line.
@@ -143,6 +164,15 @@ HELD_TIME_ENVS = (2048, 4096)
 ENGINE_EVAL_STEPS = 100  # the walk eval on the engine (the kernel's eval takes EVAL_STEPS)
 ENGINE_REWARD_TOL = 0.005
 ENGINE_TIME_STEPS = 3    # engine steps timed with CUDA events
+APG_GRAD_ENVS, APG_GRAD_HORIZON = 16, 2  # the card-vs-CPU gradient check
+APG_ENVS, APG_HORIZON = 2048, 8  # scripts/campaigns/campaign35.sh:79-84's probe
+APG_ITERS = 4            # its depth, cut from about 100 iterations
+APG_PROFILE_HORIZON = 1  # the profiled iteration's window
+# pbrl_tpu at that config after 5 iterations: reward_mean, grad_norm, log
+APG_PROBE = (0.69366, 93.75713, "logs/apg_probe_h8n10.log")
+APG_REWARD_TOL = 0.05
+BACKFLIP_ENV_STEPS = 6_597_509_120  # backflip's learner state, unwrapped
+DIFFMIMIC_CLIP = "walk_fps_30_20s.npy"
 
 
 def log(phase, msg=""):
@@ -784,11 +814,9 @@ def engine_phase(dev, smi, model, clip, walk_metrics):
 
     from pbrl_tpu_torch.cli import _env_config
     from pbrl_tpu_torch.envs import EnvConfig, MimicVecEnv
-    from pbrl_tpu_torch.mocap import reference_state
     from pbrl_tpu_torch.ops import mimic_kernel
     from pbrl_tpu_torch.train import checkpoint, evaluate, ppo, running_stats
     from pbrl_tpu_torch.utils.configio import dict_to_config
-    from pbrl_tpu_torch.viz import load_trajectory
 
     t_phase = time.time()
     # 1. the engine against the kernel, same reset states
@@ -962,28 +990,291 @@ def engine_phase(dev, smi, model, clip, walk_metrics):
             print(f"[smoke]   {ms:9.4f} ms/step  {name[:110]}", flush=True)
 
     # 5. cli replay on the card
-    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_replay.npz")
-    lines, built = run_cli(["replay", "--clip", "walk", "--out", out])
-    traj = load_trajectory(out)
-    pdt = EnvConfig().policy_dt
-    frames = int(float(clip.cycle_time) / pdt) + 1
-    t_f = torch.zeros(1, device=dev)
-    want = []
-    for _ in range(frames):  # the env's own clock: policy_dt added per step in float32
-        t_f = t_f + pdt
-        want.append(reference_state(clip, t_f)[0][0])
-    want = torch.stack(want).cpu().numpy()
-    err = float(np.abs(traj["qpos"] - want).max()) if traj["qpos"].shape == want.shape else None
-    log("replay", f"cli replay --clip walk: {traj['qpos'].shape[0]} frames (want {frames}), "
-        f"max |qpos - reference| {err}")
-    check(traj["qpos"].shape == (frames, model.nq) and err < 1e-6 and not built,
-          "cli replay did not play the clip's reference")
-    os.remove(out)
+    check_replay(model, clip, "walk")
     phase_s = time.time() - t_phase
     log("engine phase", f"{phase_s:.1f}s")
     return {"held_launches": held_launches, "torque_ms": torque_ms, "torque_bound": torque_bound,
             "held_err": max(r_held[k] for k in ("dq", "dv_max", "dxpos", "dxquat", "dfall")),
             "engine_ms": engine_ms}
+
+
+def apg_grad(env, cfg, ts, state, noise):
+    """The APG window's loss and the policy's gradient (one f64 vector on
+    the host) from ``state`` with this ``noise``."""
+    import torch
+
+    from pbrl_tpu_torch.train import apg
+
+    ts.env_state = state
+    loss, _ = apg.loss_and_grad(env, cfg, ts, noise)
+    g = torch.cat([p.grad.reshape(-1) for p in ts.policy.parameters() if p.grad is not None])
+    return float(loss), g.double().cpu()
+
+
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaLaunchCooperativeKernel")
+APG_RANGES = ("apg/forward", "apg/backward", "apg/update")
+
+
+def profile_apg(env, cfg, ts):
+    """``torch.profiler`` over one ``apg.train_step``: the device kernels
+    launched inside each of its ranges (``utils.profiling`` scopes
+    ``apg/forward``, ``apg/backward``, ``apg/update``; a launch belongs to
+    the range its host-side launch call starts in), the device kernels and
+    device time of the iteration, and the device-busy share of its window.
+    Read from the profiler's raw events, which are much faster to walk than
+    ``prof.events()`` at this count. None when no device time is recorded."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pbrl_tpu_torch.train import apg
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        apg.train_step(env, cfg, ts)
+        torch.cuda.synchronize()
+    traced_s = time.perf_counter() - t
+    ranges, launches, dev = {}, [], []
+    t_lo, t_hi = None, None
+    for e in prof.profiler.kineto_results.events():
+        name, a = e.name(), e.start_ns()
+        b = a + e.duration_ns()
+        t_lo = a if t_lo is None else min(t_lo, a)
+        t_hi = b if t_hi is None else max(t_hi, b)
+        if e.device_type() == DeviceType.CUDA:
+            if not name.lower().startswith(("memcpy", "memset")) and e.duration_ns() >= 0:
+                dev.append((a, b))
+        elif name in APG_RANGES:
+            ranges[name] = (a, b)
+        elif name in LAUNCH_CALLS:
+            launches.append(a)
+    if not dev:
+        return None
+    per_range = {k: sum(lo <= x < hi for x in launches) for k, (lo, hi) in ranges.items()}
+    spans = sorted(dev)
+    busy, cur_s, cur_e = 0, spans[0][0], spans[0][1]
+    for a, b in spans[1:]:
+        if a > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+    return {"launches": per_range, "host_launch_calls": len(launches), "kernels": len(dev),
+            "device_ms": sum(b - a for a, b in dev) / 1e6, "window_ms": (t_hi - t_lo) / 1e6,
+            "busy_share": busy / (t_hi - t_lo), "traced_s": traced_s}
+
+
+def apg_phase(dev, smi, model):
+    """Phase 8: APG (module docstring). Returns the numbers the report line
+    needs."""
+    import dataclasses
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pbrl_tpu_torch.envs import EnvConfig, MimicVecEnv
+    from pbrl_tpu_torch.mocap import load_clip
+    from pbrl_tpu_torch.train import apg, checkpoint
+    from pbrl_tpu_torch.utils.configio import dict_to_config, load_json_config
+
+    t_phase = time.time()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+
+    # 1. the window's policy gradient on the card against the CPU's
+    walk_dir = os.path.join(build, "smoke_apg_walk")
+    shutil.rmtree(walk_dir, ignore_errors=True)
+    checkpoint.import_train_state(walk_dir, checkpoint.bundled_train_state("walk"),
+                                  checkpoint.bundled_policy("walk"))
+    run = checkpoint.load_run_config(walk_dir)
+    payload = checkpoint.restore(walk_dir)
+    env_cfg = dict_to_config(EnvConfig, run["env_config"])
+    cfg = apg.APGConfig(num_envs=APG_GRAD_ENVS, horizon=APG_GRAD_HORIZON, action_noise=0.1,
+                        hidden=tuple(run["train_config"]["hidden"]))
+    sides = {}
+    for d in ("cpu", dev):
+        env = MimicVecEnv(model, load_clip("walk", device=d), env_cfg, backend="xla", device=d)
+        ts = apg.init(env, cfg, d)
+        checkpoint.restore_params_into(ts, payload)
+        sides[str(d)] = (env, ts)
+    cpu_env = sides["cpu"][0]
+    s = cpu_env.reset(APG_GRAD_ENVS, torch.Generator().manual_seed(5))
+    q_air = torch.cat([s.qpos[:, :2], s.qpos[:, 2:3] + 1.0, s.qpos[:, 3:]], 1)
+    airborne = s.replace(qpos=q_air, obs=cpu_env._obs(q_air, s.qvel, s.time))
+    noise = torch.randn((APG_GRAD_HORIZON, APG_GRAD_ENVS, model.nu),
+                        generator=torch.Generator().manual_seed(6))
+    grad_check = {}
+    for name, state in (("airborne", airborne), ("ground", s)):
+        t = time.perf_counter()
+        l_cpu, g_cpu = apg_grad(sides["cpu"][0], cfg, sides["cpu"][1], state, noise)
+        cpu_s = time.perf_counter() - t
+        prev = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("high")  # TF32 allowed process-wide
+        try:
+            t = time.perf_counter()
+            env, ts = sides[str(dev)]
+            on_card = apg._map_state(lambda x: x.to(dev), state)
+            l_gpu, g_gpu = apg_grad(env, cfg, ts, on_card, noise.to(dev))
+            torch.cuda.synchronize()
+            gpu_s = time.perf_counter() - t
+        finally:
+            torch.set_float32_matmul_precision(prev)
+        rel = float((g_gpu - g_cpu).norm() / g_cpu.norm())
+        cos = float(torch.dot(g_gpu, g_cpu) / (g_gpu.norm() * g_cpu.norm()))
+        grad_check[name] = {"rel": rel, "cos": cos}
+        log(f"apg grad {name}", f"{APG_GRAD_ENVS} envs x horizon {APG_GRAD_HORIZON}, walk's run "
+            f"config and learner state, TF32 allowed process-wide: loss card {l_gpu:.7g} cpu "
+            f"{l_cpu:.7g}; |grad| card {float(g_gpu.norm()):.6g} cpu {float(g_cpu.norm()):.6g}; "
+            f"relative difference {rel:.3e}, cosine {cos:.7f} (card {gpu_s:.2f}s, cpu "
+            f"{cpu_s:.2f}s)")
+        check(bool(torch.isfinite(g_gpu).all() and torch.isfinite(g_cpu).all()),
+              f"apg grad {name}: not finite")
+        if name == "airborne":
+            check(rel <= 1e-4, f"apg grad airborne: card vs cpu {rel} > 1e-4")
+        else:
+            check(cos >= 0.99 and rel <= 5e-2, f"apg grad ground: card vs cpu cos {cos}, rel {rel}")
+    del sides
+    shutil.rmtree(walk_dir, ignore_errors=True)
+
+    # 2. the fine-tune users ran: backflip's learner state through cli train-apg
+    src, dst = os.path.join(build, "smoke_apg_src"), os.path.join(build, "smoke_apg")
+    for d in (src, dst):
+        shutil.rmtree(d, ignore_errors=True)
+    step0 = checkpoint.import_train_state(src, checkpoint.bundled_train_state("backflip"),
+                                          checkpoint.bundled_policy("backflip"))
+    source = checkpoint.restore(src)
+    bf_run = checkpoint.load_run_config(src)
+    per_iter = APG_ENVS * APG_HORIZON
+    argv = ["train-apg", "--from-checkpoint", src, "--checkpoint-dir", dst,
+            "--num-envs", str(APG_ENVS), "--horizon", str(APG_HORIZON), "--lr", "1e-4",
+            "--total-steps", str(APG_ITERS * per_iter), "--steps-per-call", "1",
+            "--apg-set", "reset_every=1", "--apg-set", "action_noise=0.1"]
+    log("apg finetune", f"imported backflip step {step0}, env_steps {source['env_steps']}; "
+        "python -m pbrl_tpu_torch.cli " + " ".join(argv) + f" | {smi}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    lines, built = run_cli(argv)
+    torch.cuda.synchronize()
+    apg_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    history = [ln for ln in lines if "iteration" in ln]
+    apg_launches = sum(k.launches for k in built)
+    check(len(history) == APG_ITERS and all(
+        np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in history),
+        f"non-finite or missing APG loss or grad_norm: {history}")
+    check(not built and apg_launches == 0, f"APG built {len(built)} kernels, launched "
+          f"{apg_launches} times: it must run on the engine")
+    payload = checkpoint.restore(dst)
+    check(all(torch.equal(payload["value"][k], v) for k, v in source["value"].items()),
+          "the critic moved during APG")
+    check(any(not torch.equal(payload["policy"][k], v) for k, v in source["policy"].items()),
+          "APG did not move the policy")
+    ft_run = checkpoint.load_run_config(dst)
+    check(ft_run["clip"] == "backflip" and dict_to_config(EnvConfig, ft_run["env_config"])
+          == dict_to_config(EnvConfig, bf_run["env_config"]),
+          f"the APG run did not inherit backflip's env config: {ft_run}")
+    want_cfg = apg.APGConfig(num_envs=APG_ENVS, horizon=APG_HORIZON, learning_rate=1e-4,
+                             total_env_steps=APG_ITERS * per_iter, reset_every=1,
+                             action_noise=0.1, hidden=tuple(bf_run["train_config"]["hidden"]),
+                             init_log_std=bf_run["train_config"]["init_log_std"])
+    got_cfg = load_json_config(os.path.join(dst, "apg_config.json"), apg.APGConfig)
+    check(got_cfg == want_cfg, f"apg_config.json {got_cfg} != {want_cfg}")
+    last = checkpoint.latest_step(dst)
+    check(last == APG_ITERS, f"APG checkpoint {last} != {APG_ITERS}")
+    check(payload["env_steps"] == BACKFLIP_ENV_STEPS + APG_ITERS * per_iter,
+          f"APG env_steps {payload['env_steps']} != {BACKFLIP_ENV_STEPS} + {APG_ITERS * per_iter}")
+    want_r, want_g, src_log = APG_PROBE
+    got_r = history[-1]["reward_mean"]
+    fwd = [h["forward_s"] for h in history]
+    bwd = [h["backward_s"] for h in history]
+    log("apg finetune", f"{APG_ITERS} iterations in {apg_s:.2f}s, 0 kernel launches, "
+        f"checkpoints {checkpoint._steps(dst)}, env_steps {payload['env_steps']}; reward_mean "
+        + " -> ".join(f"{h['reward_mean']:.5f}" for h in history) + f" (pbrl_tpu's log "
+        f"{src_log} after 5 iterations: {want_r}); grad_norm "
+        + ", ".join(f"{h['grad_norm']:.4g}" for h in history) + f" (log: {want_g}); per "
+        "iteration forward " + ", ".join(f"{x * 1e3:.0f}" for x in fwd) + " ms, backward "
+        + ", ".join(f"{x * 1e3:.0f}" for x in bwd) + f" ms; env-steps/s {history[-1]['sps']:.1f}; "
+        f"peak memory {peak / 2**30:.2f} GiB | {smi}")
+    check(abs(got_r - want_r) <= APG_REWARD_TOL,
+          f"APG reward_mean {got_r} not within {APG_REWARD_TOL} of pbrl_tpu's {want_r}")
+
+    # 3. its checkpoint's eval through the kernel, with backflip's bound
+    lines, built = run_cli(["eval", "--checkpoint-dir", dst, "--num-envs", str(RECIPE_ENVS),
+                            "--steps", str(RECIPE_STEPS)])
+    m = lines[-1]
+    eval_launches = sum(k.launches for k in built)
+    bf_r, bf_len, _ = RECIPES["backflip"]
+    log("apg eval", f"{RECIPE_ENVS} x {RECIPE_STEPS} through the kernel ({eval_launches} "
+        "launches): " + json.dumps(m) + f"; bound {bf_r - 0.05:.5f} / {0.9 * bf_len:.2f}")
+    check(eval_launches == RECIPE_STEPS, f"APG eval launches {eval_launches} != {RECIPE_STEPS}")
+    check(m["eval_reward"] >= bf_r - 0.05 and m["eval_episode_length"] >= 0.9 * bf_len,
+          f"APG checkpoint's eval {m} below backflip's bound")
+
+    # 4. a profile of one APG iteration at that config (depth cut to APG_PROFILE_HORIZON)
+    env = MimicVecEnv(model, load_clip("backflip", device=dev),
+                      dict_to_config(EnvConfig, bf_run["env_config"]), backend="xla", device=dev)
+    pcfg = dataclasses.replace(want_cfg, horizon=APG_PROFILE_HORIZON)
+    ts = apg.init(env, pcfg, dev)
+    checkpoint.restore_params_into(ts, payload)
+    apg.train_step(env, pcfg, ts)  # warm-up
+    prof = profile_apg(env, pcfg, ts)
+    if prof is None:
+        log("apg profile", "torch.profiler recorded no device time")
+    else:
+        per = {k: v / APG_PROFILE_HORIZON for k, v in prof["launches"].items()}
+        log("apg profile", f"one iteration at {APG_ENVS} envs x horizon {APG_PROFILE_HORIZON}: "
+            f"device launches per window step forward {per.get('apg/forward', 0):.0f}, backward "
+            f"(recompute included) {per.get('apg/backward', 0):.0f}, update "
+            f"{per.get('apg/update', 0):.0f}; {prof['kernels']} device kernels, "
+            f"{prof['host_launch_calls']} host launch calls; window {prof['window_ms']:.1f} ms, "
+            f"device {prof['device_ms']:.1f} ms, busy {prof['busy_share']:.4f} (traced "
+            f"{prof['traced_s']:.1f}s) | {smi}")
+    del ts, env
+    for d in (src, dst):
+        shutil.rmtree(d, ignore_errors=True)
+
+    # 5. a DiffMimic clip played back on the card
+    check_replay(model, load_clip(DIFFMIMIC_CLIP, device=dev), DIFFMIMIC_CLIP)
+    phase_s = time.time() - t_phase
+    log("apg phase", f"{phase_s:.1f}s")
+    return {"apg_launches": apg_launches, "apg_eval_launches": eval_launches,
+            "grad": grad_check, "peak_gib": peak / 2**30}
+
+
+def check_replay(model, clip, name):
+    """``cli replay --clip name`` on the card against the clip's reference
+    states at the env's own clock (policy_dt added per step in float32)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from pbrl_tpu_torch.envs import EnvConfig
+    from pbrl_tpu_torch.mocap import reference_state
+    from pbrl_tpu_torch.viz import load_trajectory
+
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_replay.npz")
+    lines, built = run_cli(["replay", "--clip", name, "--out", out])
+    traj = load_trajectory(out)
+    pdt = EnvConfig().policy_dt
+    frames = int(float(clip.cycle_time) / pdt) + 1
+    t_f = torch.zeros(1, device=clip.qpos.device)
+    want = []
+    for _ in range(frames):
+        t_f = t_f + pdt
+        want.append(reference_state(clip, t_f)[0][0])
+    want = torch.stack(want).cpu().numpy()
+    err = float(np.abs(traj["qpos"] - want).max()) if traj["qpos"].shape == want.shape else None
+    log("replay", f"cli replay --clip {name}: {traj['qpos'].shape[0]} frames (want {frames}), "
+        f"max |qpos - reference| {err}")
+    check(traj["qpos"].shape == (frames, model.nq) and err < 1e-6 and not built,
+          f"cli replay --clip {name} did not play the clip's reference")
+    os.remove(out)
 
 
 def fmt(d):
@@ -1195,7 +1486,10 @@ def main():
     # 7. the engine, held-torque PD, the controllers, replay
     en = engine_phase(dev, smi, model, clip, metrics)
 
-    # 8. report
+    # 8. APG through the engine, the DiffMimic clip
+    ag = apg_phase(dev, smi, model)
+
+    # 9. report
     print(json.dumps({"kernels": [{
         "name": "mimic_step", "route": "cuda",
         "source": "pbrl_tpu_torch/csrc/mimic_step.cu",
@@ -1209,7 +1503,8 @@ def main():
         "self_contact_max_abs_err": rc["self_err"], "backflip_finetune_launches":
         rc["ft_launches"], "held_launches": en["held_launches"],
         "torque_mode_ms": en["torque_ms"], "torque_mode_bound_ms": en["torque_bound"],
-        "torque_mode_max_abs_err": en["held_err"],
+        "torque_mode_max_abs_err": en["held_err"], "apg_launches": ag["apg_launches"],
+        "apg_eval_launches": ag["apg_eval_launches"],
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,6 +3,7 @@
     python -m pbrl_tpu_torch.cli info
     python -m pbrl_tpu_torch.cli replay --clip walk --out walk.npz
     python -m pbrl_tpu_torch.cli train --clip walk --checkpoint-dir runs/walk
+    python -m pbrl_tpu_torch.cli train-apg --from-checkpoint runs/walk --checkpoint-dir runs/apg
     python -m pbrl_tpu_torch.cli eval --clip walk --checkpoint-dir runs/walk
 
 ``info`` prints the devices, the model's sizes, the bundled clips and the
@@ -20,6 +21,16 @@ policy-step kernel, ``xla`` the einsum engine in plain PyTorch (pbrl_tpu's
 name for its engine backend); ``--controller`` takes all four PD laws (the
 kernel implicit and Stable PD only). One process on one device: the
 multi-process flags are refused.
+
+``train-apg`` runs analytic policy gradients
+(:func:`pbrl_tpu_torch.train.apg.train`) with pbrl_tpu's flags, on the
+engine (``backend="xla"``: the kernel has no backward). With
+``--from-checkpoint`` (a run directory of the port, e.g. one written by
+``checkpoint.import_train_state``) it starts from that run's params, obs
+stats and ``env_steps`` and inherits its whole training ``EnvConfig``, its
+clip and its network fields; ``--env-set`` and ``--apg-set`` apply on top.
+It prints one JSON line per ``--steps-per-call`` iterations and a last
+``{"final": ...}`` line; ``eval --checkpoint-dir`` reads its output.
 
 ``eval`` rebuilds the env from the run configuration (``run_config.json``
 in ``--checkpoint-dir``, which must hold one, else the copy inside the
@@ -174,6 +185,51 @@ def cmd_train(args):
     return 0
 
 
+def cmd_train_apg(args):
+    _require_device(args.device)
+
+    from pbrl_tpu_torch.envs import EnvConfig, MimicVecEnv
+    from pbrl_tpu_torch.mocap import load_clip
+    from pbrl_tpu_torch.model import humanoid_model
+    from pbrl_tpu_torch.train import APGConfig, checkpoint, train_apg
+    from pbrl_tpu_torch.utils.configio import dict_to_config
+
+    env_cfg, clip, run = EnvConfig(), args.clip or "walk", None
+    if args.from_checkpoint:
+        # a fine-tune continues the source run's problem: its whole training
+        # env (shaping and reset noise included), its clip and its widths
+        run = checkpoint.load_run_config(args.from_checkpoint)
+        if run.get("env_config"):
+            env_cfg = dict_to_config(EnvConfig, run["env_config"])
+        clip = args.clip or run.get("clip") or clip
+    env_cfg = _overrides(env_cfg, args.env_set, "--env-set", _float_or_str)
+    # the policy-step kernel has no backward: APG runs on the engine
+    env = MimicVecEnv(humanoid_model(), load_clip(clip, device=args.device), env_cfg,
+                      backend="xla", device=args.device)
+    cfg = APGConfig(num_envs=args.num_envs, horizon=args.horizon, learning_rate=args.lr,
+                    gamma=args.gamma, total_env_steps=args.total_steps, seed=args.seed)
+    if run is not None and run.get("train_config"):
+        tc = run["train_config"]
+        cfg = dataclasses.replace(
+            cfg, hidden=tuple(tc.get("hidden", cfg.hidden)),
+            normalize_obs=tc.get("normalize_obs", cfg.normalize_obs),
+            init_log_std=tc.get("init_log_std", cfg.init_log_std),
+            fixed_log_std=tc.get("fixed_log_std", cfg.fixed_log_std))
+    cfg = _overrides(cfg, args.apg_set, "--apg-set", int)
+
+    def progress(it, entry):
+        print(json.dumps({"iteration": it, **{k: round(v, 5) if isinstance(v, float) else v
+                                             for k, v in entry.items()}}), flush=True)
+
+    _, history = train_apg(env, cfg, progress_fn=progress if args.verbose else None,
+                           checkpoint_dir=args.checkpoint_dir,
+                           checkpoint_every=args.checkpoint_every,
+                           steps_per_call=args.steps_per_call,
+                           resume_from=args.from_checkpoint, device=args.device)
+    print(json.dumps({"final": history[-1] if history else {}}))
+    return 0
+
+
 def cmd_eval(args):
     import torch
 
@@ -259,6 +315,32 @@ def build_parser():
     sp.add_argument("--process-id", type=int, default=None)
     sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     sp.set_defaults(fn=cmd_train)
+
+    sp = sub.add_parser("train-apg", help="analytic-policy-gradient training through the "
+                        "differentiable engine (usually a PPO fine-tune)")
+    sp.add_argument("--clip", default=None, help="default: the source run's clip, else walk")
+    sp.add_argument("--from-checkpoint", default=None,
+                    help="warm-start params, obs stats and env_steps (and inherit the "
+                         "training env config, clip and widths) from this run directory")
+    sp.add_argument("--checkpoint-dir", default=None)
+    sp.add_argument("--checkpoint-every", type=int, default=50)
+    sp.add_argument("--steps-per-call", type=int, default=10,
+                    help="iterations per progress line")
+    sp.add_argument("--num-envs", type=int, default=256)
+    sp.add_argument("--horizon", type=int, default=32,
+                    help="truncated-BPTT window length (policy steps)")
+    sp.add_argument("--total-steps", type=int, default=2_000_000)
+    sp.add_argument("--lr", type=float, default=2e-5)
+    sp.add_argument("--gamma", type=float, default=0.95)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--env-set", action="append", default=[], metavar="FIELD=VALUE",
+                    help="override EnvConfig fields on top of the inherited run config")
+    sp.add_argument("--apg-set", action="append", default=[], metavar="FIELD=VALUE",
+                    help="override any APGConfig field (repeatable), e.g. "
+                         "--apg-set action_noise=0.02 --apg-set remat=false")
+    sp.add_argument("--quiet", dest="verbose", action="store_false")
+    sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    sp.set_defaults(fn=cmd_train_apg)
 
     sp = sub.add_parser("eval", help="evaluate a policy")
     sp.add_argument("--clip", default=None)

@@ -187,10 +187,40 @@ def from_euler_rxyz(euler: torch.Tensor) -> torch.Tensor:
     return mul(from_rotvec(ex), mul(from_rotvec(ey), from_rotvec(ez)))
 
 
+def _sum_to(g: torch.Tensor, shape) -> torch.Tensor:
+    """Reduce a broadcast gradient back to an input's ``shape``."""
+    lead = g.dim() - len(shape)
+    if lead:
+        g = g.sum(dim=tuple(range(lead)))
+    dims = tuple(i for i, n in enumerate(shape) if n == 1 and g.shape[i] != 1)
+    return g.sum(dim=dims, keepdim=True) if dims else g
+
+
+class _AngleBetween(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q1, q2):
+        ctx.save_for_backward(q1, q2)
+        d = torch.abs(torch.sum(q1 * q2, dim=-1))
+        return 2.0 * torch.acos(torch.clamp(d, -1.0, 1.0))
+
+    @staticmethod
+    def backward(ctx, g):
+        q1, q2 = ctx.saved_tensors
+        s = torch.sum(q1 * q2, dim=-1)
+        d_safe = torch.clamp(torch.abs(s), -1.0 + 1e-6, 1.0 - 1e-6)
+        coef = (g * (-2.0 / torch.sqrt(1.0 - d_safe * d_safe)) * torch.sign(s))[..., None]
+        return _sum_to(coef * q2, q1.shape), _sum_to(coef * q1, q2.shape)
+
+
 def angle_between(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
-    """Geodesic angle between two unit quaternions, in [0, pi]."""
-    d = torch.abs(torch.sum(q1 * q2, dim=-1))
-    return 2.0 * torch.acos(torch.clamp(d, -1.0, 1.0))
+    """Geodesic angle between two unit quaternions, in [0, pi].
+
+    The value is the plain ``2 acos |<q1, q2>|``. Its gradient is pbrl_tpu's
+    custom JVP transposed: ``d/dx acos`` diverges as ``|<q1, q2>| -> 1``,
+    where autograd would give ``0 * inf = NaN`` exactly where a policy
+    tracks well, so the derivative factor is clamped at ``|d| = 1 - 1e-6``
+    (about 1.4e3). Analytic policy gradients (``train/apg.py``) need it."""
+    return _AngleBetween.apply(q1, q2)
 
 
 def box_minus(q_new: torch.Tensor, q_old: torch.Tensor, dt) -> torch.Tensor:

@@ -115,9 +115,20 @@ def clip_path(name_or_path: str) -> str:
 
 
 def load_clip(name_or_path: str, device="cuda", dtype=torch.float32, **kw) -> MotionClip:
-    """Load a bundled clip by short name ('walk') or a DeepMimic .txt path."""
+    """Load a clip: a bundled short name ('walk'), a DeepMimic .txt path, or a
+    DiffMimic .npy path (per-body world poses, :mod:`.diffmimic`), looked
+    up under ``assets/motion_diffmimic/`` when it is not a file."""
     if name_or_path.endswith(".npy"):
-        raise NotImplementedError("DiffMimic .npy clips are not ported yet")
+        from pbrl_tpu_torch.mocap.diffmimic import parse_diffmimic_npy
+
+        if not os.path.exists(name_or_path):
+            alt = os.path.join(_ASSET_DIR, "..", "motion_diffmimic", name_or_path)
+            if not os.path.exists(alt):
+                raise FileNotFoundError(name_or_path)
+            name_or_path = alt
+        name = os.path.splitext(os.path.basename(name_or_path))[0]
+        return from_parsed(parse_diffmimic_npy(name_or_path, **kw), name=name, device=device,
+                           dtype=dtype)
     path = clip_path(name_or_path)
     name = (os.path.splitext(os.path.basename(path))[0]
             if os.path.exists(name_or_path) else name_or_path)

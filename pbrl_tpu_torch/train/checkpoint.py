@@ -144,7 +144,8 @@ def _write(directory: str, payload: dict, step: int) -> None:
 
 
 def save(directory: str, ts, step: int) -> None:
-    """Persist the learner slice of a ``ppo.TrainState``."""
+    """Persist the learner slice of a ``ppo.TrainState`` (PPO's, or APG's,
+    whose optimiser covers the policy only)."""
     cpu = lambda sd: {k: v.detach().cpu() for k, v in sd.items()}
     _write(directory, {
         "policy": cpu(ts.policy.state_dict()),
@@ -164,15 +165,22 @@ def restore(directory: str, step: Optional[int] = None, device="cpu") -> dict:
     return torch.load(_path(directory, step), map_location=device, weights_only=True)
 
 
-def restore_into(ts, payload: dict) -> None:
-    """Load a checkpoint payload into a ``ppo.TrainState`` in place."""
+def restore_params_into(ts, payload: dict) -> None:
+    """Load a PPO or APG payload's params, obs stats and ``env_steps`` into
+    a ``ppo.TrainState`` in place and leave its optimiser as it is: APG's
+    warm start and resume restart the optimiser, as pbrl_tpu's do."""
     ts.policy.load_state_dict(payload["policy"])
     ts.value.load_state_dict(payload["value"])
     dev = ts.policy.log_std.device
-    ts.opt.load_state_dict(payload["opt"], dev)
     ts.obs_stats = RunningStats(**{k: payload["obs_stats"][k].to(dev)
                                    for k in ("count", "mean", "m2")})
     ts.env_steps = int(payload["env_steps"])
+
+
+def restore_into(ts, payload: dict) -> None:
+    """Load a checkpoint payload into a ``ppo.TrainState`` in place."""
+    restore_params_into(ts, payload)
+    ts.opt.load_state_dict(payload["opt"], ts.policy.log_std.device)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
-"""PPO's optimiser: ``optax.chain(clip_by_global_norm(max_grad_norm),
+"""The trainers' optimiser: ``optax.chain(clip_by_global_norm(max_grad_norm),
 adam(lr))`` with an optional linear learning-rate decay, as
-``pbrl_tpu/train/ppo.py`` builds it.
+``pbrl_tpu/train/ppo.py`` builds it; with ``zero_nans``, APG's
+``optax.chain(zero_nans(), clip_by_global_norm(...), adam(lr))``
+(``pbrl_tpu/train/apg.py``).
 
 Written out rather than taken from ``torch.optim`` and
 ``clip_grad_norm_``, whose arithmetic differs from optax's:
@@ -15,7 +17,9 @@ Written out rather than taken from ``torch.optim`` and
   rate and every update past ``total_updates`` uses 1% of it.
 
 A parameter without a gradient (``fixed_log_std``) counts as a zero
-gradient, as under ``stop_gradient``: its moments still decay.
+gradient, as under ``stop_gradient``: its moments still decay. ``zero_nans``
+replaces each NaN gradient entry by 0 before the clip (infinities stay,
+as in optax); the norm :meth:`Adam.step` returns is the raw gradients'.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ class Adam:
     learning_rate: float
     max_grad_norm: float
     total_updates: int = 0   # 0: constant learning rate
+    zero_nans: bool = False  # NaN gradient entries -> 0 before the clip (APG)
     count: int = 0           # updates applied (optax's adam and schedule counts)
     mu: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     nu: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
@@ -50,13 +55,16 @@ class Adam:
     @torch.no_grad()
     def step(self, params: Dict[str, torch.Tensor]) -> torch.Tensor:
         """One update of ``params`` (name -> leaf tensor) from their
-        ``.grad``; returns the global gradient norm before clipping."""
+        ``.grad``; returns the global norm of the raw gradients."""
         grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for k, p in params.items()}
         if not self.mu:
             self.mu = {k: torch.zeros_like(p) for k, p in params.items()}
             self.nu = {k: torch.zeros_like(p) for k, p in params.items()}
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+        raw_norm = norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+        if self.zero_nans:
+            grads = {k: torch.where(torch.isnan(g), 0.0, g) for k, g in grads.items()}
+            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
         keep = norm < self.max_grad_norm
         lr = self.lr(self.count)
         self.count += 1
@@ -68,7 +76,7 @@ class Adam:
             nu = self.nu[k].mul_(B2).add_((1.0 - B2) * g ** 2)
             upd = (mu / bc1) / (torch.sqrt(nu / bc2) + EPS)
             p.add_(-lr * upd)
-        return norm
+        return raw_norm
 
     def state_dict(self) -> dict:
         return {"count": self.count, "mu": {k: v.detach().cpu() for k, v in self.mu.items()},

@@ -36,7 +36,9 @@ def test_every_module_listed():
                  "pbrl_tpu_torch.control.pd", "pbrl_tpu_torch.control.trajectory",
                  "pbrl_tpu_torch.envs.humanoid_task", "pbrl_tpu_torch.envs.base",
                  "pbrl_tpu_torch.envs.replay", "pbrl_tpu_torch.envs.mimic",
-                 "pbrl_tpu_torch.viz.render"):
+                 "pbrl_tpu_torch.viz.render", "pbrl_tpu_torch.train.apg",
+                 "pbrl_tpu_torch.utils.guards", "pbrl_tpu_torch.utils.profiling",
+                 "pbrl_tpu_torch.mocap.diffmimic"):
         assert want in mods
 
 

@@ -114,7 +114,27 @@ with the seconds elapsed:
    window cut to APG_PROFILE_HORIZON step (device launches per window step
    in the forward, the backward and the update, and the device-busy
    share); ``cli replay`` of the DiffMimic clip against its reference;
-9. one JSON line describing the kernel, the card's ``nvidia-smi`` line, and
+9. the last modules: (a) data-parallel training, two processes of the
+   command line (``pbrl_tpu_torch.cli.main``, what ``python -m
+   pbrl_tpu_torch.cli`` runs) ``train --clip walk --distributed`` on the one
+   card (gloo: the processes share it), walk's TrainConfig at 2048 envs in
+   all (1024 per rank) x 16 steps for DP_ITERS iterations from seed 0,
+   beside one process of the same command without ``--distributed``:
+   both ranks' lines bit-identical, DP_ITERS x 16 kernel launches in each
+   rank, finite metrics, the checkpoint written by rank 0 only with
+   ``env_steps`` DP_ITERS x 32,768, the first iteration's ``reward_mean``
+   and ``episode_done_frac`` within DP_TOL of the one process's and its
+   loss terms within DP_LOSS_RTOL relative, and both runs' env-steps/s
+   (not a scaling number: the ranks share one card); (b) the kernel's
+   slide-joint path (``J_SLIDE``) against its plain version on
+   tests/test_field_physics.py's slide scene, loaded by ``model.mjcf``:
+   SLIDE_ENVS perturbed copies, ``torque`` mode, 2 policy steps, phase 3's
+   bounds, the fall flag exact; (c) ``cli rollout --clip walk --steps
+   300``: 300 kernel launches, 300 steps alive, mean reward >=
+   MIN_EVAL_REWARD, a finite (300, 35) trajectory with its rewards and
+   dones; (d) ``cli bench --num-envs 4096``: its kernel-against-engine
+   parity asserts (``pbrl_tpu_torch/bench.py``) and its JSON line;
+10. one JSON line describing the kernel, the card's ``nvidia-smi`` line, and
    last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero without the last line.
@@ -173,6 +193,41 @@ APG_PROBE = (0.69366, 93.75713, "logs/apg_probe_h8n10.log")
 APG_REWARD_TOL = 0.05
 BACKFLIP_ENV_STEPS = 6_597_509_120  # backflip's learner state, unwrapped
 DIFFMIMIC_CLIP = "walk_fps_30_20s.npy"
+DP_RANKS = 2             # data-parallel ranks, sharing the one card
+DP_ITERS = 4             # their iterations (each 2048 envs x 16 steps in all)
+DP_TOL = 1e-3            # first iteration's reward_mean / episode_done_frac against 1 process
+DP_LOSS_RTOL = 0.01      # its loss terms, relative
+DP_TIMEOUT_S = 300
+SLIDE_ENVS = 256
+ROLLOUT_STEPS = 300
+BENCH_ENVS = 4096
+# tests/test_field_physics.py's slide scene: a slider on the floor with a swinging hinge arm
+SLIDE_XML = """
+<mujoco>
+  <compiler angle="radian"/>
+  <worldbody>
+    <geom name="floor" type="plane" size="5 5 0.1"/>
+    <body name="carriage" pos="0 0 0.6">
+      <joint name="lift" type="slide" axis="0 0 1" damping="0.5"/>
+      <geom name="ball" type="sphere" size="0.12" mass="2"/>
+      <body name="arm" pos="0.2 0 0">
+        <joint name="swing" type="hinge" axis="0 1 0" damping="0.1"/>
+        <geom name="tip" type="sphere" size="0.06" pos="0.25 0 0" mass="0.5"/>
+      </body>
+    </body>
+  </worldbody>
+</mujoco>
+"""
+# one rank of phase 9's data-parallel run: the command line in this process, then its launches
+DP_RANK = """
+import json, sys
+from chip_smoke import track_steps
+from pbrl_tpu_torch import cli
+with track_steps() as built:
+    rc = cli.main(sys.argv[1:])
+print(json.dumps({"kernel_launches": sum(k.launches for k in built)}), flush=True)
+sys.exit(rc)
+"""
 
 
 def log(phase, msg=""):
@@ -753,52 +808,21 @@ def recipes_phase(dev, smi, model):
     return out
 
 
-def run_cli(argv):
+def run_cli(argv, text=None):
     """``cli.main(argv)`` with its standard output captured: the JSON lines
-    it printed, and the policy-step wrappers the envs it built own."""
+    it printed, and the policy-step wrappers the envs it built own (the
+    whole output goes to ``text`` when given)."""
     import io
 
     from pbrl_tpu_torch import cli
 
-    text = io.StringIO()
+    text = io.StringIO() if text is None else text
     with track_steps() as built, contextlib.redirect_stdout(text):
         cli.main(argv)
     lines = [json.loads(ln) for ln in text.getvalue().splitlines() if ln.startswith("{")]
     for ln in lines:
         print("[smoke]   " + json.dumps(ln), flush=True)
     return lines, built
-
-
-def backends_agree(model, clip, cfg, action, lift=0.0, seed=7):
-    """The engine backend against the kernel backend from the same reset
-    states (ENGINE_ENVS envs), 2 policy steps: max |dqpos|, the per-env
-    qvel error distribution, max |dreward|, and the kernel's launches."""
-    import numpy as np
-    import torch
-
-    from pbrl_tpu_torch.envs import MimicVecEnv
-
-    dev = clip.qpos.device
-    kenv = MimicVecEnv(model, clip, cfg, backend="kernel", device=dev)
-    xenv = MimicVecEnv(model, clip, cfg, backend="xla", device=dev)
-    check(not hasattr(xenv, "_kstep"), "the engine backend built a kernel")
-    s = kenv.reset(ENGINE_ENVS, torch.Generator(device=dev).manual_seed(seed))
-    if lift:
-        s = s.replace(qpos=torch.cat([s.qpos[:, :2], s.qpos[:, 2:3] + lift, s.qpos[:, 3:]],
-                                     1).contiguous())
-    ks = xs = s
-    kenv._kstep.launches = 0
-    with torch.no_grad():
-        for _ in range(2):
-            ks = kenv.step(ks, action)
-            xs = xenv.step(xs, action)
-    torch.cuda.synchronize()
-    dv_env = (ks.qvel - xs.qvel).abs().amax(dim=1).cpu().numpy()
-    return {"dq": float((ks.qpos - xs.qpos).abs().max()),
-            "dv_med": float(np.median(dv_env)), "dv_p90": float(np.percentile(dv_env, 90)),
-            "dv_max": float(dv_env.max()), "dr": float((ks.reward - xs.reward).abs().max()),
-            "finite": bool(torch.isfinite(xs.qpos).all() and torch.isfinite(xs.qvel).all()),
-            "kernel_launches": kenv._kstep.launches}
 
 
 def engine_phase(dev, smi, model, clip, walk_metrics):
@@ -812,6 +836,7 @@ def engine_phase(dev, smi, model, clip, walk_metrics):
     import numpy as np
     import torch
 
+    from pbrl_tpu_torch.bench import backends_agree
     from pbrl_tpu_torch.cli import _env_config
     from pbrl_tpu_torch.envs import EnvConfig, MimicVecEnv
     from pbrl_tpu_torch.ops import mimic_kernel
@@ -833,7 +858,7 @@ def engine_phase(dev, smi, model, clip, walk_metrics):
                                             **noisy), zero, 1.0))
     agree = {}
     for name, cfg, act, lift in cases:
-        r = backends_agree(model, clip, cfg, act, lift=lift)
+        r = backends_agree(model, clip, cfg, act, lift=lift, num_envs=ENGINE_ENVS)
         log(f"engine vs kernel {name}", fmt(r))
         check(r["finite"], f"{name}: engine output not finite")
         check(r["kernel_launches"] == 2, f"{name}: kernel launches {r['kernel_launches']} != 2")
@@ -1277,6 +1302,197 @@ def check_replay(model, clip, name):
     os.remove(out)
 
 
+def dp_train(dev, smi, walk_cfg):
+    """Phase 9a: DP_RANKS processes of ``cli train --distributed`` on the
+    one card beside one process of the same command (module docstring)."""
+    import os
+    import shutil
+    import socket
+
+    import numpy as np
+
+    from pbrl_tpu_torch.train import checkpoint
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    steps = DP_ITERS * walk_cfg.steps_per_iteration
+    base = ["train", "--clip", "walk", "--num-envs", str(walk_cfg.num_envs), "--unroll-length",
+            str(walk_cfg.unroll_length), "--total-steps", str(steps), "--lr",
+            str(walk_cfg.learning_rate), "--train-set", f"entropy_cost={walk_cfg.entropy_cost}",
+            "--seed", "0"]
+    dirs = [os.path.join(root, "build", f"smoke_dp{r}") for r in range(DP_RANKS)]
+    one_dir = os.path.join(root, "build", "smoke_dp_one")
+    for d in (*dirs, one_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    # one process of the whole batch, in this process
+    log("dp train", f"one process: python -m pbrl_tpu_torch.cli {' '.join(base)} | {smi}")
+    one, built = run_cli([*base, "--checkpoint-dir", one_dir])
+    one_launches = sum(k.launches for k in built)
+    # DP_RANKS processes on the one card
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    argvs = [[*base, "--distributed", "--coordinator", f"localhost:{port}", "--num-processes",
+              str(DP_RANKS), "--process-id", str(r), "--checkpoint-dir", dirs[r]]
+             for r in range(DP_RANKS)]
+    log("dp train", f"{DP_RANKS} ranks: python -m pbrl_tpu_torch.cli {' '.join(argvs[0])} "
+        "(process ids 0..1)")
+    t = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", DP_RANK, *a], cwd=root,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for a in argvs]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DP_TIMEOUT_S))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    dp_s = time.perf_counter() - t
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"rank {r} failed ({p.returncode}):\n{err[-3000:]}")
+    texts = [out.splitlines() for out, _ in outs]
+    ranks = [[json.loads(ln) for ln in lines if ln.startswith("{")] for lines in texts]
+    for ln in ranks[0]:
+        print("[smoke]   rank 0: " + json.dumps(ln), flush=True)
+    print("[smoke]   rank 1: " + json.dumps(ranks[1][0]), flush=True)
+    launches = [r[-1]["kernel_launches"] for r in ranks]
+    finals = [lines[-2] for lines in texts]  # the line before each rank's launch count
+    check(finals[0] == finals[1], "the ranks' final lines differ")
+    check(ranks[0][0] == ranks[1][0] == {"distributed": {"backend": "gloo", "world": DP_RANKS}},
+          f"not a gloo run of {DP_RANKS} ranks: {ranks[0][0]} {ranks[1][0]}")
+    check(len(ranks[1]) == 3, "rank 1 printed progress")
+    progress = [ln for ln in ranks[0] if "iteration" in ln]
+    final = ranks[0][-2]["final"]
+    want_launches = DP_ITERS * walk_cfg.unroll_length
+    check(launches == [want_launches] * DP_RANKS and one_launches == want_launches,
+          f"kernel launches per rank {launches}, one process {one_launches} != {want_launches}")
+    check(len(progress) == DP_ITERS and all(np.isfinite(v) for ln in progress
+                                            for v in ln.values()), "non-finite dp metrics")
+    check(all(np.isfinite(v) for v in final.values()), f"non-finite final line {final}")
+    check(not os.path.exists(dirs[1]), "rank 1 wrote into its checkpoint directory")
+    ck = checkpoint.restore(dirs[0])
+    check(checkpoint.latest_step(dirs[0]) == DP_ITERS and ck["env_steps"] == steps
+          and final["env_steps"] == steps,
+          f"rank 0's checkpoint: step {checkpoint.latest_step(dirs[0])}, env_steps "
+          f"{ck['env_steps']} (want {steps})")
+    first, first_one = progress[0], [ln for ln in one if "iteration" in ln][0]
+    diffs = {k: abs(first[k] - first_one[k]) for k in ("reward_mean", "episode_done_frac")}
+    rel = {k: abs(first[k] - first_one[k]) / max(abs(first_one[k]), 1e-12)
+           for k in ("loss_policy", "loss_value", "entropy", "kl_approx")}
+    log("dp train", f"first iteration, {DP_RANKS} ranks against one process: |d| "
+        + fmt(diffs) + " | relative " + fmt(rel))
+    check(all(v < DP_TOL for v in diffs.values()), f"dp first iteration moved: {diffs}")
+    check(all(v < DP_LOSS_RTOL for v in rel.values()), f"dp loss terms moved: {rel}")
+    one_final = one[-1]["final"]
+    log("dp train", f"{DP_RANKS} ranks on one card: {dp_s:.1f}s wall (process start included), "
+        f"env-steps/s {final['sps']:.1f} (rollout {final['rollout_s']:.3f}s, learn "
+        f"{final['learn_s']:.3f}s in the last iteration, the slower rank's); one process: "
+        f"env-steps/s {one_final['sps']:.1f} (rollout {one_final['rollout_s']:.3f}s, learn "
+        f"{one_final['learn_s']:.3f}s); launches per rank {launches} | {smi}")
+    for d in (*dirs, one_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    return {"launches_per_rank": launches[0], "sps": final["sps"], "one_sps": one_final["sps"]}
+
+
+def slide_check(dev, smi):
+    """Phase 9b: the kernel's slide-joint path against its plain version
+    (module docstring)."""
+    import numpy as np
+    import torch
+
+    from pbrl_tpu_torch.model import load_model
+    from pbrl_tpu_torch.ops import field_physics as fp
+    from pbrl_tpu_torch.ops import mimic_kernel
+
+    m = load_model(SLIDE_XML)
+    check(list(m.jnt_type) == [2, 1], f"the slide scene's joints {list(m.jnt_type)}")
+    kstep, spec = mimic_kernel.build_mimic_step(m, n_substeps=8, mode="torque")
+    rng = np.random.default_rng(21)
+    q = np.tile(np.asarray(m.qpos0, np.float32), (SLIDE_ENVS, 1))
+    # the ball about 1 cm above the floor or just touching it; the arm tip up
+    q[:, 0] += -0.47 + 0.02 * rng.standard_normal(SLIDE_ENVS)
+    q[:, 1] += -0.5 + 0.3 * rng.standard_normal(SLIDE_ENVS)
+    v = np.stack([-0.5 + 0.5 * rng.standard_normal(SLIDE_ENVS),
+                  1.0 + 0.5 * rng.standard_normal(SLIDE_ENVS)], 1).astype(np.float32)
+    q, v = (torch.as_tensor(x, device=dev).contiguous() for x in (q, v))
+    u = torch.zeros(SLIDE_ENVS, 1, device=dev)
+    touching = float(fp.contacts_touching(spec, q).any(dim=1).float().mean())
+    kstep.launches = 0
+    r = compare(kstep, lambda a, b, c: mimic_kernel.mimic_step_plain(spec, a, b, c), q, v, u,
+                steps=2)
+    log("check slide", f"{SLIDE_ENVS} envs of the slide scene, torque mode, 2 policy steps, "
+        f"{touching:.3f} of them touching at the start: " + fmt(r)
+        + f" | kernel launches {kstep.launches} | {smi}")
+    check_errors("slide", r)
+    check(kstep.launches == 2, f"slide kernel launches {kstep.launches} != 2")
+    return max(r[k] for k in ("dq", "dv_max", "dxpos", "dxquat", "dfall"))
+
+
+def rollout_check(smi):
+    """Phase 9c: ``cli rollout --clip walk --steps ROLLOUT_STEPS`` on the
+    card (module docstring)."""
+    import io
+    import os
+    import re
+
+    import numpy as np
+
+    from pbrl_tpu_torch.viz import load_trajectory
+
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_rollout.npz")
+    text = io.StringIO()
+    t = time.perf_counter()
+    _, built = run_cli(["rollout", "--clip", "walk", "--steps", str(ROLLOUT_STEPS), "--out", out],
+                       text)
+    rollout_s = time.perf_counter() - t
+    line = text.getvalue().strip().splitlines()[-1]
+    print("[smoke]   " + line, flush=True)
+    m = re.fullmatch(r"rollout: (\d+) steps, mean reward (\S+), alive (\d+) steps -> .*", line)
+    launches = sum(k.launches for k in built)
+    traj = load_trajectory(out)
+    ok = (m is not None and int(m.group(1)) == int(m.group(3)) == ROLLOUT_STEPS
+          and float(m.group(2)) >= MIN_EVAL_REWARD)
+    log("rollout", f"{rollout_s:.2f}s, kernel launches {launches}, trajectory "
+        f"{traj['qpos'].shape}, keys {sorted(traj)} | {smi}")
+    check(ok, f"cli rollout: {line}")
+    check(launches == ROLLOUT_STEPS, f"rollout kernel launches {launches} != {ROLLOUT_STEPS}")
+    check(traj["qpos"].shape == (ROLLOUT_STEPS, 35) and np.isfinite(traj["qpos"]).all()
+          and traj["metric_reward"].shape == traj["metric_done"].shape == (ROLLOUT_STEPS,),
+          "cli rollout's trajectory")
+    os.remove(out)
+    return launches
+
+
+def bench_check(smi):
+    """Phase 9d: ``cli bench --num-envs BENCH_ENVS`` (module docstring)."""
+    t = time.perf_counter()
+    lines, built = run_cli(["bench", "--num-envs", str(BENCH_ENVS)])
+    rec = lines[-1]
+    log("bench", f"{time.perf_counter() - t:.1f}s (parity included): {rec['value']:.1f} "
+        f"env-steps/s at {rec['num_envs']} envs, {rec['achieved_gflops_per_chip']} GFLOP/s, "
+        f"timed launches {rec['launches']} of {sum(k.launches for k in built)} | {smi}")
+    check(rec["num_envs"] == BENCH_ENVS and rec["value"] > 0 and rec["launches"] == rec["iters"],
+          f"cli bench: {rec}")
+    return rec["value"]
+
+
+def last_modules_phase(dev, smi):
+    """Phase 9: data-parallel training, the slide joint, cli rollout, cli
+    bench (module docstring). Returns the numbers the report line needs."""
+    from pbrl_tpu_torch.train import checkpoint, ppo
+    from pbrl_tpu_torch.utils.configio import dict_to_config
+
+    t_phase = time.time()
+    _, _, run = checkpoint.load_policy(checkpoint.bundled_policy("walk"), device=dev)
+    walk_cfg = dict_to_config(ppo.TrainConfig, run["train_config"])
+    out = {"dp": dp_train(dev, smi, walk_cfg), "slide_err": slide_check(dev, smi),
+           "rollout_launches": rollout_check(smi), "bench_sps": bench_check(smi)}
+    log("last modules phase", f"{time.time() - t_phase:.1f}s")
+    return out
+
+
 def fmt(d):
     return " ".join(f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}" for k, v in d.items())
 
@@ -1489,7 +1705,10 @@ def main():
     # 8. APG through the engine, the DiffMimic clip
     ag = apg_phase(dev, smi, model)
 
-    # 9. report
+    # 9. the last modules: data parallelism, the slide joint, rollout, bench
+    lm = last_modules_phase(dev, smi)
+
+    # 10. report
     print(json.dumps({"kernels": [{
         "name": "mimic_step", "route": "cuda",
         "source": "pbrl_tpu_torch/csrc/mimic_step.cu",
@@ -1505,6 +1724,9 @@ def main():
         "torque_mode_ms": en["torque_ms"], "torque_mode_bound_ms": en["torque_bound"],
         "torque_mode_max_abs_err": en["held_err"], "apg_launches": ag["apg_launches"],
         "apg_eval_launches": ag["apg_eval_launches"],
+        "dp_launches_per_rank": lm["dp"]["launches_per_rank"], "dp_env_steps_per_s":
+        lm["dp"]["sps"], "slide_max_abs_err": lm["slide_err"],
+        "rollout_launches": lm["rollout_launches"], "bench_env_steps_per_s": lm["bench_sps"],
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,12 +5,16 @@
     python -m pbrl_tpu_torch.cli train --clip walk --checkpoint-dir runs/walk
     python -m pbrl_tpu_torch.cli train-apg --from-checkpoint runs/walk --checkpoint-dir runs/apg
     python -m pbrl_tpu_torch.cli eval --clip walk --checkpoint-dir runs/walk
+    python -m pbrl_tpu_torch.cli rollout --clip walk --video walk.mp4
+    python -m pbrl_tpu_torch.cli bench --num-envs 4096
+    torchrun --nproc-per-node 4 -m pbrl_tpu_torch.cli train --distributed
 
 ``info`` prints the devices, the model's sizes, the bundled clips and the
 registered environments. ``replay`` plays a clip back kinematically
 (:class:`~pbrl_tpu_torch.envs.replay.ReplayEnv`) for ``--steps`` policy
 steps (default one cycle) and writes the qpos trajectory to ``--out``;
-``--video`` is refused, as rendering needs MuJoCo.
+``--video`` renders it with host MuJoCo (from ``--camera``), which must
+be installed.
 
 ``train`` runs PPO (:func:`pbrl_tpu_torch.train.ppo.train`) with pbrl_tpu's
 flags, ``--env-set`` and ``--train-set`` included; it prints one JSON line
@@ -19,8 +23,17 @@ it writes ``run_config.json`` and checkpoints there and resumes from the
 latest one. ``--backend`` picks the physics: ``auto`` or ``kernel`` the
 policy-step kernel, ``xla`` the einsum engine in plain PyTorch (pbrl_tpu's
 name for its engine backend); ``--controller`` takes all four PD laws (the
-kernel implicit and Stable PD only). One process on one device: the
-multi-process flags are refused.
+kernel implicit and Stable PD only). With ``--distributed`` it is one rank
+of a data-parallel run (:mod:`pbrl_tpu_torch.parallel`): the ranks meet at
+``--coordinator`` (host:port) with ``--num-processes`` and
+``--process-id``, or, without them, where torchrun's environment says;
+each rank runs on ``cuda:LOCAL_RANK`` (modulo the cards; ``--device cpu``: the CPU), steps
+``--num-envs / world`` envs, and together the ranks compute one process's
+training step on the whole batch. The run's first line names the
+collective backend (NCCL when each process has a card of its own, gloo when
+processes share one or run on the CPU); only rank 0 prints progress and
+writes the run config and checkpoints, and every rank prints the same
+final line.
 
 ``train-apg`` runs analytic policy gradients
 (:func:`pbrl_tpu_torch.train.apg.train`) with pbrl_tpu's flags, on the
@@ -31,6 +44,13 @@ stats and ``env_steps`` and inherits its whole training ``EnvConfig``, its
 clip and its network fields; ``--env-set`` and ``--apg-set`` apply on top.
 It prints one JSON line per ``--steps-per-call`` iterations and a last
 ``{"final": ...}`` line; ``eval --checkpoint-dir`` reads its output.
+
+``rollout`` runs one env of ``--clip`` with the policy's mean action
+for ``--steps`` steps (the kernel's launches on the card), writes the qpos
+trajectory with its rewards and dones to ``--out``, prints pbrl_tpu's
+summary line and, with ``--video``, renders it. The policy is found as
+``eval`` finds it. ``bench`` runs :mod:`pbrl_tpu_torch.bench` at
+``--num-envs`` envs.
 
 ``eval`` rebuilds the env from the run configuration (``run_config.json``
 in ``--checkpoint-dir``, which must hold one, else the copy inside the
@@ -123,10 +143,15 @@ def cmd_info(args):
     return 0
 
 
+def _write_video(path, qpos, fps, camera):
+    from pbrl_tpu_torch.model import humanoid_spec
+    from pbrl_tpu_torch.viz import render_video, save_video
+
+    out = save_video(path, render_video(humanoid_spec(), qpos, camera=camera or None), fps=fps)
+    print(f"video -> {out}")
+
+
 def cmd_replay(args):
-    if args.video:
-        raise SystemExit("--video: rendering needs host MuJoCo, which the port does not "
-                         "use; write the trajectory with --out and render it elsewhere")
     _require_device(args.device)
 
     from pbrl_tpu_torch.envs import ReplayEnv
@@ -140,18 +165,35 @@ def cmd_replay(args):
     qpos = states.pipeline.qpos[:, 0].cpu().numpy()
     dump_trajectory(args.out, qpos, 1.0 / env.config.policy_dt)
     print(json.dumps({"replayed": args.clip, "frames": steps, "out": args.out}))
+    if args.video:
+        _write_video(args.video, qpos, 1.0 / env.config.policy_dt, args.camera)
     return 0
 
 
 def cmd_train(args):
-    refused = {"--distributed": args.distributed or None, "--coordinator": args.coordinator,
-               "--num-processes": args.num_processes, "--process-id": args.process_id}
-    for flag, value in refused.items():
-        if value is not None:
-            raise SystemExit(f"{flag}: multi-process training is not ported yet "
-                             "(the port trains on one card)")
     _require_device(args.device)
+    if not args.distributed:
+        return _train(args, args.device, None)
 
+    import torch
+
+    from pbrl_tpu_torch.parallel import distributed, make_mesh
+
+    distributed.initialize_distributed(distributed.DistributedConfig(
+        coordinator_address=args.coordinator, num_processes=args.num_processes,
+        process_id=args.process_id), device=args.device)
+    try:
+        mesh = make_mesh(args.device)
+        if mesh.device.type == "cuda":
+            torch.cuda.set_device(mesh.device)
+        print(json.dumps({"distributed": {"backend": distributed.backend(),
+                                          "world": mesh.world}}), flush=True)
+        return _train(args, mesh.device, mesh)
+    finally:
+        distributed.shutdown()
+
+
+def _train(args, device, mesh):
     from pbrl_tpu_torch.envs import EnvConfig, MimicVecEnv
     from pbrl_tpu_torch.mocap import load_clip
     from pbrl_tpu_torch.model import humanoid_model
@@ -167,8 +209,8 @@ def cmd_train(args):
                         physics_dt=args.physics_dt,
                         pose_termination=args.pose_termination)
     env_cfg = _overrides(env_cfg, args.env_set, "--env-set", _float_or_str)
-    env = MimicVecEnv(humanoid_model(), load_clip(args.clip, device=args.device), env_cfg,
-                      backend=args.backend, device=args.device)
+    env = MimicVecEnv(humanoid_model(), load_clip(args.clip, device=device), env_cfg,
+                      backend=args.backend, device=device, mesh=mesh)
     cfg = TrainConfig(num_envs=args.num_envs, unroll_length=args.unroll_length,
                       total_env_steps=args.total_steps, learning_rate=args.lr,
                       gamma=args.gamma, seed=args.seed)
@@ -180,8 +222,8 @@ def cmd_train(args):
 
     _, history = train(env, cfg, progress_fn=progress if args.verbose else None,
                        checkpoint_dir=args.checkpoint_dir,
-                       checkpoint_every=args.checkpoint_every, device=args.device)
-    print(json.dumps({"final": history[-1] if history else {}}))
+                       checkpoint_every=args.checkpoint_every, device=device)
+    print(json.dumps({"final": history[-1] if history else {}}), flush=True)
     return 0
 
 
@@ -230,15 +272,16 @@ def cmd_train_apg(args):
     return 0
 
 
-def cmd_eval(args):
-    import torch
-
+def _policy_env(args):
+    """(policy, obs stats, run config, env) of ``eval`` and ``rollout``:
+    the policy from ``--policy``, else ``--checkpoint-dir``'s latest
+    checkpoint, else the clip's bundled export; the env of its
+    eval-stripped run config with ``--env-set`` on top."""
     from pbrl_tpu_torch.envs import MimicVecEnv
     from pbrl_tpu_torch.mocap import load_clip
     from pbrl_tpu_torch.model import humanoid_model
-    from pbrl_tpu_torch.train import checkpoint, evaluate
+    from pbrl_tpu_torch.train import checkpoint
 
-    _require_device(args.device)
     run = checkpoint.load_run_config(args.checkpoint_dir) if args.checkpoint_dir else None
     clip = args.clip or (run or {}).get("clip") or "walk"
     if (args.policy is None and args.checkpoint_dir
@@ -255,11 +298,75 @@ def cmd_eval(args):
     env_cfg = _overrides(_env_config(run), args.env_set, "--env-set", _float_or_str)
     env = MimicVecEnv(humanoid_model(), load_clip(clip, device=args.device), env_cfg,
                       device=args.device)
+    return policy, stats, run, env
+
+
+def _normalize_obs(run) -> bool:
+    return (run.get("train_config") or {}).get("normalize_obs", True)
+
+
+def cmd_eval(args):
+    import torch
+
+    from pbrl_tpu_torch.train import evaluate
+
+    _require_device(args.device)
+    policy, stats, run, env = _policy_env(args)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
-    normalize = (run.get("train_config") or {}).get("normalize_obs", True)
     metrics = evaluate(env, policy, stats, num_envs=args.num_envs, num_steps=args.steps,
-                       generator=gen, normalize_obs=normalize)
+                       generator=gen, normalize_obs=_normalize_obs(run))
     print(json.dumps({k: float(v) for k, v in metrics.items()}))
+    return 0
+
+
+def rollout_trajectory(env, policy, stats, state, steps: int, normalize_obs: bool = True):
+    """``steps`` steps of the policy's mean action from ``state`` (no
+    reset after a done, as pbrl_tpu's rollout): (qpos (steps, nq), reward
+    (steps,), done (steps,)) of env 0, as numpy."""
+    import torch
+
+    from pbrl_tpu_torch.train.running_stats import normalize
+
+    qpos, reward, done = [], [], []
+    with torch.no_grad():
+        for _ in range(steps):
+            mean, _ = policy(normalize(stats, state.obs) if normalize_obs else state.obs)
+            state = env.step(state, mean)
+            qpos.append(state.qpos[0])
+            reward.append(state.reward[0])
+            done.append(state.done[0])
+    return tuple(torch.stack(x).cpu().numpy() for x in (qpos, reward, done))
+
+
+def cmd_rollout(args):
+    import numpy as np
+    import torch
+
+    from pbrl_tpu_torch.viz import dump_trajectory
+
+    _require_device(args.device)
+    policy, stats, run, env = _policy_env(args)
+    state = env.reset(1, torch.Generator(device=args.device).manual_seed(args.seed))
+    qpos, reward, done = rollout_trajectory(env, policy, stats, state, args.steps,
+                                            _normalize_obs(run))
+    fps = 1.0 / env.config.effective_policy_dt
+    dump_trajectory(args.out, qpos, fps, metrics={"reward": reward, "done": done})
+    alive = int(np.argmax(done > 0)) or args.steps
+    print(f"rollout: {args.steps} steps, mean reward {float(reward[:alive].mean()):.3f}, "
+          f"alive {alive} steps -> {args.out}")
+    if args.video:
+        _write_video(args.video, qpos, fps, args.camera)
+    return 0
+
+
+def cmd_bench(args):
+    import os
+
+    from pbrl_tpu_torch import bench
+
+    _require_device(args.device)
+    os.environ["BENCH_NUM_ENVS"] = str(args.num_envs)
+    bench.main(device=args.device)
     return 0
 
 
@@ -273,7 +380,9 @@ def build_parser():
     sp.add_argument("--clip", default="walk", help="bundled clip name or a file path")
     sp.add_argument("--steps", type=int, default=0, help="frames (default: one cycle)")
     sp.add_argument("--out", default="replay.npz")
-    sp.add_argument("--video", default="", help="refused: rendering needs MuJoCo")
+    sp.add_argument("--video", default="", help="optional video output path (host MuJoCo)")
+    sp.add_argument("--camera", default="back",
+                    help="named model camera for --video (back/side; '' = free)")
     sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     sp.set_defaults(fn=cmd_replay)
 
@@ -309,8 +418,11 @@ def build_parser():
                          "engine in plain PyTorch (xla)")
     sp.add_argument("--checkpoint-dir", default=None)
     sp.add_argument("--quiet", dest="verbose", action="store_false")
-    sp.add_argument("--distributed", action="store_true")
-    sp.add_argument("--coordinator", default=None)
+    sp.add_argument("--distributed", action="store_true",
+                    help="one rank of a data-parallel run over torch.distributed (torchrun's "
+                         "environment unless --coordinator/--num-processes/--process-id)")
+    sp.add_argument("--coordinator", default=None,
+                    help="host:port where the ranks meet (served by process 0)")
     sp.add_argument("--num-processes", type=int, default=None)
     sp.add_argument("--process-id", type=int, default=None)
     sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -354,6 +466,26 @@ def build_parser():
                          "config (repeatable), e.g. --env-set ref_target_lead=0.025")
     sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     sp.set_defaults(fn=cmd_eval)
+
+    sp = sub.add_parser("rollout", help="roll a policy -> trajectory/video")
+    sp.add_argument("--clip", default=None)
+    sp.add_argument("--checkpoint-dir", default=None)
+    sp.add_argument("--policy", default=None, help="exported .npz")
+    sp.add_argument("--steps", type=int, default=300)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--out", default="rollout.npz")
+    sp.add_argument("--video", default="", help="optional video output path (host MuJoCo)")
+    sp.add_argument("--camera", default="back",
+                    help="named model camera for --video (back/side; '' = free)")
+    sp.add_argument("--env-set", action="append", default=[], metavar="FIELD=VALUE",
+                    help="override EnvConfig fields on top of the eval-stripped run config")
+    sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    sp.set_defaults(fn=cmd_rollout)
+
+    sp = sub.add_parser("bench", help="throughput benchmark (one JSON line)")
+    sp.add_argument("--num-envs", type=int, default=4096)
+    sp.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    sp.set_defaults(fn=cmd_bench)
     return p
 
 

@@ -16,6 +16,14 @@ pre-step state on the engine (``forward_smooth``, one ``(M + dt KD)``
 solve, clamp, mask), and the kernel runs in its ``torque`` mode. As in
 pbrl_tpu, the kernel backend implements implicit and Stable PD only, and
 held PD the Stable-PD law only; other combinations raise ``ValueError``.
+
+Data parallelism: an env built on a :class:`~pbrl_tpu_torch.parallel.Mesh`
+of ``n`` ranks holds this rank's rows of the batch. ``reset`` takes the
+whole batch's size; every random draw (RSI times, reset noise, the
+curriculum's draws) is made for the whole batch from the generator, which
+every rank seeds alike, and each rank keeps its own rows, so the ranks
+together draw what one process draws for the whole batch. The curriculum's
+peer is drawn among the alive envs of all ranks.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from pbrl_tpu_torch.mocap.clip import (MotionClip, phase, reference_aux,
                                        reference_frame_index, reference_state)
 from pbrl_tpu_torch.model.spec import Model
 from pbrl_tpu_torch.ops.mimic_kernel import build_mimic_step
+from pbrl_tpu_torch.parallel.mesh import SINGLE, Mesh
 
 BACKENDS = ("auto", "kernel", "xla")
 
@@ -65,6 +74,7 @@ class MimicVecEnv:
         backend: str = "auto",
         actuator_mask=None,
         device="cuda",
+        mesh: Optional[Mesh] = None,
     ):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
@@ -80,6 +90,7 @@ class MimicVecEnv:
         self.backend = backend
         self._mode = mode
         self.device = torch.device(device)
+        self.mesh = mesh or SINGLE
         model = env_model(model, config)
         self.model = model
         self.config = config
@@ -298,21 +309,23 @@ class MimicVecEnv:
 
     def reset(self, num_envs: int, generator: Optional[torch.Generator] = None,
               t0: Optional[torch.Tensor] = None) -> VecState:
-        """Reset ``num_envs`` envs. Start times come from ``t0`` when given
-        (shared with another implementation in tests), else from RSI draws
-        of ``generator``; reset noise is drawn from ``generator``."""
+        """Reset a batch of ``num_envs`` envs (this rank's rows of it). Start
+        times come from ``t0`` (num_envs,) when given (shared with another
+        implementation in tests), else from RSI draws of ``generator``;
+        reset noise is drawn from ``generator``."""
         c = self.config
-        B = num_envs
+        mesh = self.mesh
+        B = mesh.local(num_envs)
         dev = self.device
 
-        def draw(fn, *shape):
+        def draw(fn, *shape):  # the whole batch's draw; this rank's rows of it
             gdev = generator.device if generator is not None else dev
-            return fn(*shape, generator=generator, device=gdev).to(dev)
+            return mesh.rows(fn(num_envs, *shape, generator=generator, device=gdev)).to(dev)
 
         if t0 is None:
             if c.reference_state_init:
                 hi = self.clip.cycle_time if self.clip.loop else 0.9 * self.clip.cycle_time
-                u = draw(torch.rand, B)
+                u = draw(torch.rand)
                 if c.rsi_phase_bias > 0:
                     u = u ** (1.0 / (1.0 + c.rsi_phase_bias))
                 elif c.rsi_phase_bias < 0:
@@ -320,15 +333,16 @@ class MimicVecEnv:
                 t0 = hi * u
             else:
                 t0 = torch.zeros(B, device=dev)
-        t0 = torch.as_tensor(t0, dtype=torch.float32, device=dev)
+        else:
+            t0 = mesh.rows(torch.as_tensor(t0, dtype=torch.float32, device=dev))
         qpos, qvel = reference_state(self.clip, t0)
         if c.rsi_noise_qpos > 0 or c.rsi_noise_qvel > 0:
-            nq = draw(torch.randn, B, self.model.nq - 7)
-            nv = draw(torch.randn, B, self.model.nv)
+            nq = draw(torch.randn, self.model.nq - 7)
+            nv = draw(torch.randn, self.model.nv)
             qpos = torch.cat([qpos[:, :7], qpos[:, 7:] + c.rsi_noise_qpos * nq], dim=1)
             qvel = qvel + c.rsi_noise_qvel * nv
         if c.rsi_noise_root_xy > 0:
-            nxy = 2.0 * draw(torch.rand, B, 2) - 1.0
+            nxy = 2.0 * draw(torch.rand, 2) - 1.0
             qpos = torch.cat([qpos[:, :2] + c.rsi_noise_root_xy * nxy, qpos[:, 2:]], dim=1)
         qpos, qvel = qpos.contiguous(), qvel.contiguous()
         zeros = torch.zeros(B, device=dev)
@@ -394,10 +408,12 @@ class MimicVecEnv:
         batch, as :meth:`reset` draws them (start times from ``t0`` when
         given). With ``curriculum_reset_prob`` p > 0, an env restarts with
         probability p from the state of a peer drawn uniformly among the
-        alive envs (in ``curriculum_phase_window``, when set); ``u`` (B,)
-        and ``peer`` (B,) replace those draws of ``generator`` when given."""
+        alive envs of the whole batch (in ``curriculum_phase_window``, when
+        set); ``u`` and ``peer`` (both of the whole batch's size) replace
+        those draws of ``generator`` when given."""
         c = self.config
-        B = state.done.shape[0]
+        mesh = self.mesh
+        B = state.done.shape[0] * mesh.world  # the whole batch
         fresh = self.reset(B, generator, t0=t0)
         if c.curriculum_reset_prob > 0:
             dev = self.device
@@ -407,23 +423,30 @@ class MimicVecEnv:
                 lo, hi = c.curriculum_phase_window
                 ph = phase(self.clip, state.time)
                 ok = ok & (ph >= lo) & (ph <= hi)
+            # the candidate peers' states, from every rank
+            nq, nv = state.qpos.shape[1], state.qvel.shape[1]
+            whole = mesh.gather_rows(torch.cat([state.qpos, state.qvel, state.time[:, None],
+                                                ok[:, None].to(state.qpos.dtype)], dim=1))
+            all_q, all_v = whole[:, :nq], whole[:, nq:nq + nv]
+            all_t, all_ok = whole[:, nq + nv], whole[:, nq + nv + 1] > 0
             if u is None:
                 u = torch.rand(B, generator=generator, device=gdev).to(dev)
             if peer is None:
                 # Uniform over the eligible envs by inverse CDF, over all envs
                 # when none is (ok[peer] then refuses the draw); no host sync.
-                w = torch.where(ok.any(), ok.to(torch.float32), 1.0)
+                w = torch.where(all_ok.any(), all_ok.to(torch.float32), 1.0)
                 cdf = torch.cumsum(w, 0)
                 r = torch.rand(B, generator=generator, device=gdev).to(dev) * cdf[-1]
                 peer = torch.searchsorted(cdf, r, right=True).clamp_(max=B - 1)
-            use = (u < c.curriculum_reset_prob) & ok[peer]
-            peer_qpos = state.qpos[peer]
+            u, peer = mesh.rows(u), mesh.rows(peer)
+            use = (u < c.curriculum_reset_prob) & all_ok[peer]
+            peer_qpos = all_q[peer]
             if c.curriculum_recenter_xy:
-                ref_q, _ = reference_state(self.clip, state.time[peer])
+                ref_q, _ = reference_state(self.clip, all_t[peer])
                 peer_qpos = torch.cat([ref_q[:, :2], peer_qpos[:, 2:]], dim=1)
             qpos0 = torch.where(use[:, None], peer_qpos, fresh.qpos)
-            qvel0 = torch.where(use[:, None], state.qvel[peer], fresh.qvel)
-            t_peer = state.time[peer]
+            qvel0 = torch.where(use[:, None], all_v[peer], fresh.qvel)
+            t_peer = all_t[peer]
             t0 = torch.where(use, t_peer, fresh.time)
             fresh = fresh.replace(qpos=qpos0, qvel=qvel0, time=t0,
                                   episode_start=torch.where(use, t_peer, fresh.episode_start),

@@ -4,7 +4,9 @@ The port's own copy of ``pbrl_tpu/mocap/convert.py`` (host numpy, f64):
 parse the JSON clip, convert the left-handed y-up mocap frame to the
 right-handed z-up model frame, emit ``qpos`` rows (spherical joints as
 intrinsic-xyz Euler triples with branch continuity) and ``qvel`` rows by
-finite differencing. Files are read with the standard ``json`` module.
+finite differencing. Files are read by the native C++ parser
+(:mod:`pbrl_tpu_torch.io_native`) where it is available, else by the
+standard ``json`` module; both give the same frames.
 """
 
 from __future__ import annotations
@@ -171,10 +173,22 @@ def parse_deepmimic(path_or_json: str, *, velocity_mode: str = "euler_rate") -> 
         loop = str(data.get("Loop", "none")).strip('"')
     else:
         source = path_or_json
-        with open(path_or_json) as f:
-            data = json.load(f)
-        frames = np.asarray(data["Frames"], np.float64)
-        loop = str(data.get("Loop", "none")).strip('"')
+        frames = None
+        # the native C++ parser (native/pbrl_io.cpp) when it is available
+        # (PBRL_NATIVE unset or 1, a host C++ compiler), else Python's json;
+        # a file the native parser refuses is read by json, as in pbrl_tpu
+        from pbrl_tpu_torch import io_native
+
+        if io_native.available():
+            try:
+                frames, loop = io_native.load_frames(path_or_json)
+            except RuntimeError:
+                frames = None
+        if frames is None:
+            with open(path_or_json) as f:
+                data = json.load(f)
+            frames = np.asarray(data["Frames"], np.float64)
+            loop = str(data.get("Loop", "none")).strip('"')
 
     T = frames.shape[0]
     durations = frames[:, 0]

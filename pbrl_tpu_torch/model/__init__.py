@@ -1,4 +1,4 @@
-"""Model layer: spec builder and compiled Model (host numpy)."""
+"""Model layer: spec builder, compiled Model (host numpy), MJCF subset IO."""
 
 from pbrl_tpu_torch.model.spec import (  # noqa: F401
     ActuatorSpec,
@@ -18,3 +18,4 @@ from pbrl_tpu_torch.model.builders import (  # noqa: F401
     sphere_model,
     sphere_scene_spec,
 )
+from pbrl_tpu_torch.model.mjcf import load_model, load_spec, to_mjcf  # noqa: F401

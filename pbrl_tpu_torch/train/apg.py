@@ -31,6 +31,15 @@ step would give the recompute other noise and a wrong gradient.
 :func:`train_step` also takes the noise and the reset states as arguments,
 so that a test can feed in pbrl_tpu's.
 
+Data parallelism follows PPO's (:mod:`pbrl_tpu_torch.train.ppo`): on an
+env built on a mesh of ``n`` ranks each rank runs its rows of the batch
+through the window, from the whole batch's draws (noise, resets); its loss
+is its share (its window sum over the whole ``num_envs``), and one
+all-reduce of one flat buffer sums the policy's gradients, the loss and
+the metrics before ``zero_nans`` and the clip. The obs statistics take the
+window's observations of all ranks; only the primary rank writes the run
+config and checkpoints and calls ``progress_fn``.
+
 Deliberate differences from pbrl_tpu's ``train``: every one of
 ``num_iterations`` runs (pbrl_tpu drops ``num_iterations %
 steps_per_call``), the final checkpoint is labelled with the iterations
@@ -52,6 +61,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from pbrl_tpu_torch.maths.numeric import full_f32
+from pbrl_tpu_torch.parallel.mesh import mesh_of, shard_batch
 from pbrl_tpu_torch.train import checkpoint as ckpt
 from pbrl_tpu_torch.train import networks, optim, ppo, running_stats
 from pbrl_tpu_torch.utils.configio import save_json_config
@@ -126,6 +136,8 @@ def init(env, config: APGConfig, device="cuda") -> ppo.TrainState:
     The train state is PPO's: the same fields, checkpointed alike."""
     _check_env(env)
     device = torch.device(device)
+    mesh = mesh_of(env)
+    mesh.local(config.num_envs)  # raises unless the ranks split the batch evenly
     generator = torch.Generator(device=device).manual_seed(config.seed)
     policy, value = networks.init_params(
         env.observation_size, env.action_size, config.hidden,
@@ -136,16 +148,18 @@ def init(env, config: APGConfig, device="cuda") -> ppo.TrainState:
         env_state = env.reset(config.num_envs, generator)
     return ppo.TrainState(policy=policy, value=value, opt=make_optimizer(config),
                           obs_stats=running_stats.init(env.observation_size, device),
-                          env_state=env_state, generator=generator, env_steps=0)
+                          env_state=env_state, generator=generator, env_steps=0, mesh=mesh)
 
 
 def window_loss(env, config: APGConfig, policy, value, obs_stats, entry_state,
-                noise: Optional[torch.Tensor] = None):
+                noise: Optional[torch.Tensor] = None, ranks: int = 1):
     """Negative discounted window return, averaged over the batch, from
     ``entry_state``: (loss, aux). ``noise`` (horizon, B, nu) is the standard-
     normal action draw, required when ``action_noise > 0``. ``aux`` holds
     the final state, each env's ``ever_done``, the window's observations
-    (with ``update_obs_stats``) and the metrics."""
+    (with ``update_obs_stats``) and the metrics. With ``ranks`` > 1 the
+    batch is one of that many equal shares and the loss its share: the
+    ranks' losses sum to the whole batch's."""
     if config.action_noise > 0 and noise is None:
         raise ValueError("action_noise > 0 needs the window's noise draw")
 
@@ -182,7 +196,7 @@ def window_loss(env, config: APGConfig, policy, value, obs_stats, entry_state,
     if config.value_bootstrap:
         v_tail = value(_norm_obs(config, obs_stats, state.obs))
         ret = ret + (config.gamma ** config.horizon) * alive * v_tail
-    loss = -torch.mean(ret) / config.horizon
+    loss = -torch.mean(ret) / (config.horizon * ranks)
 
     rews, dones = torch.stack(rews), torch.stack(dones)
     aux = {
@@ -204,7 +218,8 @@ def loss_and_grad(env, config: APGConfig, ts: ppo.TrainState, noise=None,
     """The window's loss from ``ts.env_state`` (detached) and the policy's
     gradient in its params' ``.grad``, both in full f32: (loss, aux).
     ``timing`` gets the synchronised seconds of the forward window and of
-    the backward (``forward_s``, ``backward_s``)."""
+    the backward (``forward_s``, ``backward_s``). Data-parallel, the loss
+    and the gradient are this rank's shares (:func:`window_loss`)."""
     for p in ts.policy.parameters():
         p.grad = None
     entry = _map_state(torch.Tensor.detach, ts.env_state)
@@ -212,7 +227,7 @@ def loss_and_grad(env, config: APGConfig, ts: ppo.TrainState, noise=None,
     with full_f32():
         with profile_scope("apg/forward", sync=sync) as fwd:
             loss, aux = window_loss(env, config, ts.policy, ts.value, ts.obs_stats, entry,
-                                    noise)
+                                    noise, ranks=ts.mesh.world)
         with profile_scope("apg/backward", sync=sync) as bwd:
             loss.backward()
     if timing is not None:
@@ -226,23 +241,31 @@ def train_step(env, config: APGConfig, ts: ppo.TrainState,
     """One APG iteration: the window's loss and the policy's gradient
     (:func:`loss_and_grad`), the update, the obs stats (with
     ``update_obs_stats``), then every env that ended in the window (every
-    env, each ``reset_every`` iterations) restarts. ``noise`` (horizon, B,
-    nu) and ``fresh`` (the reset states) replace the draws of
-    ``ts.generator`` when given. Updates ``ts`` in place and returns (ts,
-    metrics) as 0-d tensors."""
+    env, each ``reset_every`` iterations) restarts. ``noise`` (horizon,
+    num_envs, nu) and ``fresh`` (the reset states of the whole batch)
+    replace the draws of ``ts.generator`` when given. Updates ``ts`` in
+    place and returns (ts, metrics) as 0-d tensors."""
     gen = ts.generator
+    mesh = ts.mesh
     dev = ts.env_state.done.device
     if noise is None and config.action_noise > 0:
         noise = torch.randn((config.horizon, config.num_envs, env.action_size),
                             generator=gen, device=gen.device).to(dev)
+    if noise is not None:
+        noise = mesh.rows(noise, dim=1)
     loss, aux = loss_and_grad(env, config, ts, noise, timing)
     params = {f"policy/{k}": p for k, p in ts.policy.named_parameters()}
+    metrics = aux["metrics"]
+    if mesh.world > 1:
+        # one all-reduce: the gradient shares, the loss shares, the ranks' metric means
+        shares = ppo._all_reduce_grads(mesh, params, torch.stack([loss, *metrics.values()]))
+        loss = shares[0]
+        metrics = dict(zip(metrics, shares[1:] / mesh.world))
     with profile_scope("apg/update"), torch.no_grad():
         grad_norm = ts.opt.step(params)
         if config.update_obs_stats:
-            ts.obs_stats = running_stats.update(ts.obs_stats, aux["obses"])
-        if fresh is None:
-            fresh = env.reset(config.num_envs, gen)
+            ts.obs_stats = running_stats.update(ts.obs_stats, aux["obses"], mesh.group)
+        fresh = env.reset(config.num_envs, gen) if fresh is None else shard_batch(mesh, fresh)
         d = aux["ever_done"] > 0
         if config.reset_every > 0:
             it = ts.env_steps // config.steps_per_iteration
@@ -253,7 +276,7 @@ def train_step(env, config: APGConfig, ts: ppo.TrainState,
             lambda a, b: torch.where(d.reshape((-1,) + (1,) * (a.dim() - 1)), a, b),
             fresh, final)
     ts.env_steps += config.steps_per_iteration
-    return ts, {"loss": loss, "grad_norm": grad_norm, **aux["metrics"]}
+    return ts, {"loss": loss, "grad_norm": grad_norm, **metrics}
 
 
 def make_apg_functions(env, config: APGConfig):
@@ -285,20 +308,22 @@ def train(env, config: APGConfig = APGConfig(), progress_fn: Optional[Callable] 
     """
     device = torch.device(device)
     ts = init(env, config, device)
+    primary = ts.mesh.rank == 0
     it0 = 0
     src = None
     if checkpoint_dir and ckpt.latest_step(checkpoint_dir) is not None:
         src = checkpoint_dir
     elif resume_from:
         src = resume_from
+    last = None if src is None else ckpt.latest_step(src)
+    ppo.same_checkpoint(ts.mesh, last, device)
     if src is not None:
-        last = ckpt.latest_step(src)
         if last is None:
             raise FileNotFoundError(f"no checkpoints under {src}")
         ckpt.restore_params_into(ts, ckpt.restore(src, last, device=device))
         if src == checkpoint_dir:
             it0 = int(last)
-    if checkpoint_dir:
+    if checkpoint_dir and primary:
         _save_run_config(checkpoint_dir, env, config)
 
     history = []
@@ -322,13 +347,14 @@ def train(env, config: APGConfig = APGConfig(), progress_fn: Optional[Callable] 
         entry["sps"] = entry["env_steps"] / (time.perf_counter() - t0)
         entry["forward_s"], entry["backward_s"] = fwd_s, bwd_s
         history.append(entry)
-        if progress_fn is not None:
+        if progress_fn is not None and primary:
             progress_fn(it + n - 1, entry)
         if checkpoint_dir and (it + n) // every > it // every:  # crossed a multiple
             saved = it0 + it + n
-            ckpt.save(checkpoint_dir, ts, step=saved)
+            if primary:
+                ckpt.save(checkpoint_dir, ts, step=saved)
         it += n
-    if checkpoint_dir and saved != it0 + config.num_iterations:
+    if checkpoint_dir and saved != it0 + config.num_iterations and primary:
         ckpt.save(checkpoint_dir, ts, step=it0 + config.num_iterations)
     return ts, history
 

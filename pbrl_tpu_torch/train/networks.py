@@ -53,11 +53,14 @@ class PolicyNetwork(nn.Module):
         self.min_log_std = min_log_std
         self.max_log_std = max_log_std
 
+    def clamped_log_std(self):
+        """The (action_size,) log-std every row of the batch uses."""
+        log_std = self.log_std.detach() if self.fixed_log_std else self.log_std
+        return torch.clamp(log_std, self.min_log_std, self.max_log_std)
+
     def forward(self, obs):
         mean = self.torso(obs)
-        log_std = self.log_std.detach() if self.fixed_log_std else self.log_std
-        log_std = torch.clamp(log_std, self.min_log_std, self.max_log_std)
-        return mean, log_std.expand_as(mean)
+        return mean, self.clamped_log_std().expand_as(mean)
 
 
 class ValueNetwork(nn.Module):

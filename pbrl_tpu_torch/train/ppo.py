@@ -11,6 +11,24 @@ the ``torch.Generator`` in the train state, on the run's device.
 :func:`rollout` and :func:`learn` also take the draws as arguments, so
 that a test can feed in pbrl_tpu's.
 
+Data parallelism: with an env built on a :class:`~pbrl_tpu_torch.parallel.
+Mesh` of ``n`` ranks, each rank steps its ``num_envs / n`` rows of the batch
+and the ranks together compute pbrl_tpu's global step, as XLA runs it
+over a sharded batch. Every rank seeds the same generator, draws the whole
+batch's action noise (and, in the env, its reset draws) and keeps its
+rows; every rank draws the same permutation of all ``T * num_envs``
+samples, and takes the entries of each minibatch whose env it holds, so
+its share of a minibatch varies. Each loss mean becomes a rank's sum over
+the whole minibatch's size (:func:`shard_loss_fn`), the advantage's mean
+and population std over each minibatch are all-reduced, the entropy term
+enters on one rank only, and one all-reduce of one flat buffer per
+minibatch sums the gradients (policy and value) and the loss metrics
+before the optimiser's clip. The obs statistics and the iteration's
+metrics are those of the whole batch, and the parameters stay bit-equal on
+every rank. Only the primary process writes the run config, checkpoints
+and progress. One process keeps :func:`loss_fn` and its means, so that its
+training rounds as it did before data parallelism, bit for bit.
+
 One deliberate difference from pbrl_tpu's ``train``: that runs
 ``num_iterations // steps_per_call`` fused calls and drops the remainder
 iterations while still numbering the final checkpoint
@@ -24,7 +42,9 @@ import time
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
+from pbrl_tpu_torch.parallel.mesh import SINGLE, Mesh, mesh_of
 from pbrl_tpu_torch.train import checkpoint as ckpt
 from pbrl_tpu_torch.train import networks, optim, running_stats
 
@@ -88,7 +108,8 @@ class TrainState:
     obs_stats: running_stats.RunningStats
     env_state: object                  # the env's batched state
     generator: torch.Generator
-    env_steps: int
+    env_steps: int                     # the whole batch's
+    mesh: Mesh = SINGLE                # the data-parallel ranks (the env's)
 
     def params(self) -> Dict[str, torch.nn.Parameter]:
         """Every trained parameter as one tree, named like the checkpoint's."""
@@ -114,9 +135,11 @@ def _norm_obs(config: TrainConfig, stats, obs):
 
 def init(env, config: TrainConfig, device="cuda") -> TrainState:
     """Fresh networks (flax's initialisers), optimiser, obs stats and env
-    batch; the draws come from a generator on ``device`` seeded with
-    ``config.seed``, which the train state keeps."""
+    batch (this rank's rows of it); the draws come from a generator on
+    ``device`` seeded with ``config.seed``, which the train state keeps."""
     device = torch.device(device)
+    mesh = mesh_of(env)
+    mesh.local(config.num_envs)  # raises unless the ranks split the batch evenly
     generator = torch.Generator(device=device).manual_seed(config.seed)
     policy, value = networks.init_params(
         env.observation_size, env.action_size, config.hidden,
@@ -127,22 +150,26 @@ def init(env, config: TrainConfig, device="cuda") -> TrainState:
     return TrainState(policy=policy, value=value, opt=opt,
                       obs_stats=running_stats.init(env.observation_size, device),
                       env_state=env.reset(config.num_envs, generator),
-                      generator=generator, env_steps=0)
+                      generator=generator, env_steps=0, mesh=mesh)
 
 
 @torch.no_grad()
 def rollout(env, config: TrainConfig, ts: TrainState, noise: Optional[torch.Tensor] = None):
     """``unroll_length`` steps of the stochastic policy with auto-reset.
     Obs are normalised with the stats at the start of the rollout.
-    ``noise`` (T, B, nu), when given, is the standard-normal action draw.
-    Returns (final env state, Transition of (T, B, ...) tensors)."""
+    ``noise`` (T, num_envs, nu), when given, is the standard-normal action
+    draw of the whole batch, as the generator's draw otherwise is; this
+    rank's rows of it move its envs. Returns (final env state, Transition of
+    (T, B, ...) tensors of this rank's B envs)."""
     state = ts.env_state
+    mesh = ts.mesh
     steps = []
     for t in range(config.unroll_length):
         obs_n = _norm_obs(config, ts.obs_stats, state.obs)
         mean, log_std = ts.policy(obs_n)
-        action = networks.sample_action(mean, log_std, ts.generator,
-                                        None if noise is None else noise[t])
+        eps = noise[t] if noise is not None else torch.randn(
+            (config.num_envs, mean.shape[1]), generator=ts.generator, device=mean.device)
+        action = networks.sample_action(mean, log_std, noise=mesh.rows(eps))
         lp = networks.log_prob(mean, log_std, action)
         val = ts.value(obs_n)
         nstate = env.step(state, action)
@@ -174,15 +201,84 @@ def loss_fn(policy, value, config: TrainConfig, batch: Transition, adv, ret, obs
                    "kl_approx": torch.mean(batch.log_prob - lp)}
 
 
+def shard_loss_fn(policy, value, config: TrainConfig, batch: Transition, adv, ret, obs_stats,
+                  adv_mean, adv_std, size: int, with_entropy: bool):
+    """One rank's share of a data-parallel minibatch's loss: :func:`loss_fn`
+    with each mean over the minibatch written as this rank's sum over its
+    whole ``size``, the advantage normalised by the whole minibatch's
+    ``adv_mean`` and ``adv_std``, and the entropy term (state-independent)
+    on the rank that passes ``with_entropy`` only. Summed over the ranks,
+    the losses and their gradients are :func:`loss_fn`'s. Returns (this
+    rank's loss, its shares of (loss_policy, loss_value, kl_approx), the
+    entropy)."""
+    obs_n = _norm_obs(config, obs_stats, batch.obs)
+    mean, log_std = policy(obs_n)
+    lp = networks.log_prob(mean, log_std, batch.action)
+    ratio = torch.exp(lp - batch.log_prob)
+    adv_n = (adv - adv_mean) / (adv_std + 1e-8)
+    surrogate = torch.minimum(
+        ratio * adv_n,
+        torch.clamp(ratio, 1 - config.clip_epsilon, 1 + config.clip_epsilon) * adv_n)
+    policy_loss = -torch.sum(surrogate) / size
+    value_loss = torch.sum((value(obs_n) - ret) ** 2) / size
+    ent = networks.entropy(policy.clamped_log_std())
+    total = policy_loss + config.value_cost * value_loss
+    if with_entropy:
+        total = total - config.entropy_cost * ent
+    shares = torch.stack([policy_loss, value_loss, torch.sum(batch.log_prob - lp) / size])
+    return total, shares.detach(), ent.detach()
+
+
+def _shard_minibatches(mesh: Mesh, perms, batch: int, adv_f):
+    """Per minibatch (rows of ``perms``, sample indices ``t * B + b`` of
+    the whole (T, B) rollout), this rank's entries as indices into its
+    flattened (T, batch) rollout, and the whole minibatch's advantage mean
+    and population std (two all-reduces for all minibatches; one host
+    sync)."""
+    n_mb, size = perms.shape
+    whole = batch * mesh.world
+    t, b = perms // whole, perms % whole - mesh.rank * batch
+    own = (b >= 0) & (b < batch)
+    local = torch.where(own, t * batch + b, 0)
+    vals = torch.where(own, adv_f[local], 0.0)
+    mean = mesh.all_reduce(torch.sum(vals, dim=1)) / size
+    sq = torch.where(own, (vals - mean[:, None]) ** 2, 0.0)
+    std = torch.sqrt(mesh.all_reduce(torch.sum(sq, dim=1)) / size)
+    entries = torch.split(local[own], own.sum(dim=1).tolist())
+    return entries, mean, std
+
+
+def _all_reduce_grads(mesh: Mesh, params, extra: torch.Tensor) -> torch.Tensor:
+    """Sum every parameter's gradient and ``extra`` over the ranks with one
+    all-reduce of one flat buffer; returns the summed ``extra``."""
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params.values()]
+    flat = mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads] + [extra]))
+    off = 0
+    for p, g in zip(params.values(), grads):
+        p.grad = flat[off:off + g.numel()].view_as(g)
+        off += g.numel()
+    return flat[off:]
+
+
+def _batch_means(mesh: Mesh, values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The mean of each tensor over the whole batch: one all-reduce of the
+    ranks' sums (their shares are of one size)."""
+    if mesh.world == 1:
+        return {k: torch.mean(v) for k, v in values.items()}
+    sums = mesh.all_reduce(torch.stack([torch.sum(v) for v in values.values()]))
+    return {k: sums[i] / (v.numel() * mesh.world) for i, (k, v) in enumerate(values.items())}
+
+
 def learn(config: TrainConfig, ts: TrainState, env_state, traj: Transition,
           perms: Optional[torch.Tensor] = None):
     """The update half of one iteration: obs stats from the rollout, GAE
     (bootstrap with the pre-update value net and the new stats), then
     ``update_epochs`` passes over ``num_minibatches`` minibatches of a
-    fresh permutation each (``perms`` (epochs, T*B) when given).
-    Updates ``ts`` in place and returns the iteration's metrics as 0-d
-    tensors."""
-    obs_stats = (running_stats.update(ts.obs_stats, traj.obs)
+    fresh permutation each of the whole batch's samples (``perms``
+    (epochs, T*num_envs) when given). Updates ``ts`` in place and returns
+    the iteration's metrics as 0-d tensors."""
+    mesh = ts.mesh
+    obs_stats = (running_stats.update(ts.obs_stats, traj.obs, mesh.group)
                  if config.normalize_obs else ts.obs_stats)
     with torch.no_grad():
         bootstrap = ts.value(_norm_obs(config, obs_stats, env_state.obs))
@@ -192,30 +288,45 @@ def learn(config: TrainConfig, ts: TrainState, env_state, traj: Transition,
     flat = Transition(**{f.name: getattr(traj, f.name).flatten(0, 1)
                          for f in dataclasses.fields(Transition)})
     adv_f, ret_f = adv.reshape(-1), ret.reshape(-1)
-    n = adv_f.shape[0]
+    n = adv_f.shape[0] * mesh.world  # the whole batch's samples
     mb = n // config.num_minibatches
+    if perms is None:
+        perms = torch.stack([torch.randperm(n, generator=ts.generator, device=adv_f.device)
+                             for _ in range(config.update_epochs)])
+    perms = perms[:, :config.num_minibatches * mb].reshape(-1, mb).to(adv_f.device)
+    if mesh.world > 1:
+        entries, adv_mean, adv_std = _shard_minibatches(mesh, perms, traj.reward.shape[1], adv_f)
     params = ts.params()
     auxes = []
-    for epoch in range(config.update_epochs):
-        perm = (perms[epoch] if perms is not None else
-                torch.randperm(n, generator=ts.generator, device=adv_f.device))
-        perm = perm[:config.num_minibatches * mb].reshape(config.num_minibatches, mb)
-        for idx in perm:
-            batch = Transition(**{f.name: getattr(flat, f.name)[idx]
-                                  for f in dataclasses.fields(Transition)})
-            for p in params.values():
-                p.grad = None
+    for j in range(perms.shape[0]):
+        idx = perms[j] if mesh.world == 1 else entries[j]
+        batch = Transition(**{f.name: getattr(flat, f.name)[idx]
+                              for f in dataclasses.fields(Transition)})
+        for p in params.values():
+            p.grad = None
+        if mesh.world == 1:
             total, aux = loss_fn(ts.policy, ts.value, config, batch, adv_f[idx],
                                  ret_f[idx], obs_stats)
             total.backward()
-            ts.opt.step(params)
-            auxes.append(aux)
+        else:
+            total, shares, ent = shard_loss_fn(
+                ts.policy, ts.value, config, batch, adv_f[idx], ret_f[idx], obs_stats,
+                adv_mean[j], adv_std[j], mb, with_entropy=mesh.rank == 0)
+            total.backward()
+            shares = _all_reduce_grads(mesh, params, shares)
+            aux = {"loss_policy": shares[0], "loss_value": shares[1], "entropy": ent,
+                   "kl_approx": shares[2]}
+        ts.opt.step(params)
+        auxes.append(aux)
 
+    means = _batch_means(mesh, {"reward_mean": traj.reward, "episode_done_frac": traj.done,
+                                **env_state.metrics})
+    means["reward_mean"] = means["reward_mean"] / config.reward_scale
     metrics = {
-        "reward_mean": torch.mean(traj.reward) / config.reward_scale,
-        "episode_done_frac": torch.mean(traj.done),
+        "reward_mean": means.pop("reward_mean"),
+        "episode_done_frac": means.pop("episode_done_frac"),
         **{k: torch.mean(torch.stack([a[k] for a in auxes])).detach() for k in auxes[0]},
-        **{k: torch.mean(v) for k, v in env_state.metrics.items()},
+        **means,
     }
     ts.obs_stats = obs_stats
     ts.env_state = env_state
@@ -229,6 +340,19 @@ def train_step(env, config: TrainConfig, ts: TrainState,
     returns (ts, metrics)."""
     env_state, traj = rollout(env, config, ts, noise)
     return ts, learn(config, ts, env_state, traj, perms)
+
+
+def same_checkpoint(mesh: Mesh, step: Optional[int], device) -> None:
+    """Raise unless every rank restores the same checkpoint step (None:
+    none), as it must to stay replicated: one directory for all ranks."""
+    if mesh.world == 1:
+        return
+    s = -1.0 if step is None else float(step)
+    got = mesh.all_reduce(torch.tensor([s, -s], dtype=torch.float64, device=device),
+                          dist.ReduceOp.MAX).tolist()
+    if got[0] != -got[1]:
+        raise ValueError("the ranks found different checkpoints to resume from: give every "
+                         "rank the same checkpoint directory")
 
 
 def _synchronize(device: torch.device):
@@ -249,13 +373,21 @@ def train(env, config: TrainConfig = TrainConfig(), progress_fn: Optional[Callab
     entry)``) holds the iteration's metrics, this run's ``env_steps``,
     ``sps`` (env steps per second since the start, learner included) and
     the iteration's ``rollout_s`` and ``learn_s``.
+
+    Data-parallel (the env's mesh has several ranks): every rank runs this
+    and holds the same history, whose times are the slowest rank's; only
+    the primary rank writes the run config and checkpoints and calls
+    ``progress_fn``, and every rank restores the checkpoint.
     """
     device = torch.device(device)
     ts = init(env, config, device)
+    primary = ts.mesh.rank == 0
     it0 = 0
     if checkpoint_dir:
-        ckpt.save_run_config(checkpoint_dir, env, config)
+        if primary:
+            ckpt.save_run_config(checkpoint_dir, env, config)
         last = ckpt.latest_step(checkpoint_dir)
+        same_checkpoint(ts.mesh, last, device)
         if last is not None:
             ckpt.restore_into(ts, ckpt.restore(checkpoint_dir, last, device=device))
             if config.reset_log_std:
@@ -276,17 +408,22 @@ def train(env, config: TrainConfig = TrainConfig(), progress_fn: Optional[Callab
         metrics = learn(config, ts, env_state, traj)
         values = torch.stack(list(metrics.values())).tolist()  # one copy to the host
         tc = time.perf_counter()
+        seconds = [tb - ta, tc - tb, tc - t0]
+        if ts.mesh.world > 1:  # the slowest rank's
+            seconds = ts.mesh.all_reduce(torch.tensor(seconds, dtype=torch.float64,
+                                                      device=device), dist.ReduceOp.MAX).tolist()
         entry = dict(zip(metrics, values))
         entry["env_steps"] = (it + 1) * config.steps_per_iteration
-        entry["sps"] = entry["env_steps"] / (tc - t0)
-        entry["rollout_s"], entry["learn_s"] = tb - ta, tc - tb
+        entry["sps"] = entry["env_steps"] / seconds[2]
+        entry["rollout_s"], entry["learn_s"] = seconds[0], seconds[1]
         history.append(entry)
-        if progress_fn is not None:
+        if progress_fn is not None and primary:
             progress_fn(it, entry)
         if checkpoint_dir and (it + 1) % max(1, checkpoint_every) == 0:
             saved = it0 + it + 1
-            ckpt.save(checkpoint_dir, ts, step=saved)
-    if checkpoint_dir and saved != it0 + config.num_iterations:
+            if primary:
+                ckpt.save(checkpoint_dir, ts, step=saved)
+    if checkpoint_dir and saved != it0 + config.num_iterations and primary:
         ckpt.save(checkpoint_dir, ts, step=it0 + config.num_iterations)
     return ts, history
 

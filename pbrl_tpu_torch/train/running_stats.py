@@ -1,8 +1,10 @@
 """Running observation statistics (counterpart of
 ``pbrl_tpu/train/running_stats.py``).
 
-One card: ``update`` merges the batch with no cross-device reduction
-(pbrl_tpu's ``axis_name`` psum waits for the data-parallel port).
+``update`` takes pbrl_tpu's ``axis_name`` as ``group``: the process group
+whose ranks hold the rest of the batch, over which the batch moments are
+all-reduced before the merge, so that every rank holds the statistics of
+the whole batch.
 """
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 
 @dataclasses.dataclass
@@ -34,12 +37,24 @@ def init(dim: int, device="cuda") -> RunningStats:
                         m2=torch.ones((dim,), device=device))
 
 
-def update(stats: RunningStats, batch: torch.Tensor) -> RunningStats:
-    """Merge a (..., dim) batch of observations (Chan's parallel update)."""
+def update(stats: RunningStats, batch: torch.Tensor, group=None) -> RunningStats:
+    """Merge a (..., dim) batch of observations (Chan's parallel update).
+    With ``group``, each of its ranks holds an equal share of the batch:
+    the mean of the shares' means, and the sum of their ``M2`` about it,
+    are all-reduced (pbrl_tpu's ``pmean`` and ``psum``)."""
     flat = batch.reshape(-1, batch.shape[-1])
     n_b = float(flat.shape[0])
     mean_b = torch.mean(flat, dim=0)
     m2_b = torch.sum((flat - mean_b) ** 2, dim=0)
+    if group is not None:
+        k = dist.get_world_size(group)
+        mean_all = mean_b.clone()
+        dist.all_reduce(mean_all, group=group)
+        mean_all /= k
+        # total M2 = sum_i [m2_i + n_i (mean_i - mean_all)^2]
+        m2_b = m2_b + n_b * (mean_b - mean_all) ** 2
+        dist.all_reduce(m2_b, group=group)
+        n_b, mean_b = n_b * k, mean_all
     delta = mean_b - stats.mean
     tot = stats.count + n_b
     new_mean = stats.mean + delta * n_b / tot

@@ -1,4 +1,8 @@
-"""Trajectory export (the rendering of pbrl_tpu's ``viz`` needs MuJoCo and
-is not ported)."""
+"""Trajectory export and host-side rendering (never on the card)."""
 
-from pbrl_tpu_torch.viz.render import dump_trajectory, load_trajectory  # noqa: F401
+from pbrl_tpu_torch.viz.render import (  # noqa: F401
+    dump_trajectory,
+    load_trajectory,
+    render_video,
+    save_video,
+)

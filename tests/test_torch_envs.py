@@ -5,6 +5,7 @@ interpolation of velocities near 3 rad/s rounds in its own order).
 """
 
 import json
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -93,5 +94,10 @@ def test_cli_replay_writes_reference_states(tmp_path, capsys, walk_pair):
     np.testing.assert_allclose(traj["qpos"], np.stack(want), atol=1e-6, rtol=0)
     jq = jax.jit(lambda: JReplayEnv(j_humanoid(), jc).rollout(frames))().pipeline.qpos
     np.testing.assert_allclose(traj["qpos"], np.asarray(jq), atol=1e-6, rtol=0)
-    with pytest.raises(SystemExit, match="MuJoCo"):
-        cli.main(["replay", "--device", "cpu", "--out", out, "--video", "walk.mp4"])
+    # --video renders with host MuJoCo; without it, an error that names it
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "mujoco", None)
+        mp.setenv("MUJOCO_GL", "egl")  # render_video leaves the process's choice alone
+        with pytest.raises(ImportError, match="MuJoCo"):
+            cli.main(["replay", "--device", "cpu", "--steps", "2", "--out", out,
+                      "--video", str(tmp_path / "walk.mp4")])

@@ -38,7 +38,9 @@ def test_every_module_listed():
                  "pbrl_tpu_torch.envs.replay", "pbrl_tpu_torch.envs.mimic",
                  "pbrl_tpu_torch.viz.render", "pbrl_tpu_torch.train.apg",
                  "pbrl_tpu_torch.utils.guards", "pbrl_tpu_torch.utils.profiling",
-                 "pbrl_tpu_torch.mocap.diffmimic"):
+                 "pbrl_tpu_torch.mocap.diffmimic", "pbrl_tpu_torch.parallel.mesh",
+                 "pbrl_tpu_torch.parallel.distributed", "pbrl_tpu_torch.model.mjcf",
+                 "pbrl_tpu_torch.io_native", "pbrl_tpu_torch.bench"):
         assert want in mods
 
 

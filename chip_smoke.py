@@ -134,7 +134,31 @@ with the seconds elapsed:
    MIN_EVAL_REWARD, a finite (300, 35) trajectory with its rewards and
    dones; (d) ``cli bench --num-envs 4096``: its kernel-against-engine
    parity asserts (``pbrl_tpu_torch/bench.py``) and its JSON line;
-10. one JSON line describing the kernel, the card's ``nvidia-smi`` line, and
+10. the training API and the per-env envs (within PHASE10_BUDGET_S): (a)
+   ``make_train_functions`` on walk's ``MimicVecEnv`` (walk's run config,
+   2048 envs x 16) for API_ITERS iterations from seed 0 beside
+   ``ppo.init`` and ``ppo.train_step`` from seed 0: every metric and
+   parameter bit-equal, API_ITERS x 16 kernel launches on each side, and
+   the triple's ``evaluate`` equal to ``ppo.evaluate`` from the same
+   policy and start states; (b) PPO through ``make_train_functions`` on
+   the per-env ``MimicEnv`` (walk's EnvConfig, the engine on the card;
+   PER_ENV_ENVS envs x 16, PER_ENV_ITERS iterations): finite metrics, no
+   kernel launched, and on one rollout step (a quarter of the envs put
+   down on the floor, so that they fall) every env that ended holds the
+   fresh reset's qpos and time to the bit and the others the step's; (c) one APG iteration through
+   ``make_apg_functions`` on ``MimicEnv`` (APG_PER_ENV_ENVS envs x horizon
+   APG_PER_ENV_HORIZON, a quarter of them put down): finite loss and
+   ``grad_norm``, the critic bit-frozen, the policy moved, no kernel
+   launched, the ended envs restarted from a reset and the others carried
+   on; (d) the tour, ``examples/quickstart_torch.py --train-steps
+   QUICKSTART_STEPS`` on the card, as two processes (sections 1-3 and
+   sections 4-5, so that section 3's engine substeps at one env do not
+   hold the phase past its budget) started first and run beside (a)-(c):
+   each exits 0 with its printed numbers finite, every section ran, and the
+   kernel launches are counted (none in sections 1-3; 1 in section 4, 8
+   per PPO iteration and 4 in the closing eval in section 5); then (b)'s
+   ms per rollout step, timed alone;
+11. one JSON line describing the kernel, the card's ``nvidia-smi`` line, and
    last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero without the last line.
@@ -217,6 +241,28 @@ SLIDE_XML = """
     </body>
   </worldbody>
 </mujoco>
+"""
+API_ITERS = 2            # phase 10a: the triple against ppo.init/train_step (2048 x 16 each)
+API_EVAL_STEPS = 16
+PER_ENV_ENVS, PER_ENV_ITERS = 256, 2          # phase 10b: PPO on MimicEnv (x 16)
+APG_PER_ENV_ENVS, APG_PER_ENV_HORIZON = 64, 4  # phase 10c
+QUICKSTART_STEPS = 32768  # phase 10d: 16 PPO iterations of 256 envs x 8
+QUICKSTART_TIMEOUT_S = 300
+TOUR_SECTIONS = ("1,2,3", "4,5")  # two processes side by side: phase 10's budget
+PHASE10_BUDGET_S = 90
+# phase 10d: the tour in a subprocess, then the launches of the kernel wrappers it built
+QUICKSTART = """
+import json, runpy, sys
+from chip_smoke import track_steps
+sys.argv = ["examples/quickstart_torch.py", *sys.argv[1:]]
+rc = 0
+with track_steps() as built:
+    try:
+        runpy.run_path("examples/quickstart_torch.py", run_name="__main__")
+    except SystemExit as e:
+        rc = e.code or 0
+print(json.dumps({"kernel_launches": sum(k.launches for k in built)}), flush=True)
+sys.exit(rc)
 """
 # one rank of phase 9's data-parallel run: the command line in this process, then its launches
 DP_RANK = """
@@ -1102,7 +1148,7 @@ def apg_phase(dev, smi, model):
     import numpy as np
     import torch
 
-    from pbrl_tpu_torch.envs import EnvConfig, MimicVecEnv
+    from pbrl_tpu_torch.envs import EnvConfig, MimicVecEnv, map_states
     from pbrl_tpu_torch.mocap import load_clip
     from pbrl_tpu_torch.train import apg, checkpoint
     from pbrl_tpu_torch.utils.configio import dict_to_config, load_json_config
@@ -1142,7 +1188,7 @@ def apg_phase(dev, smi, model):
         try:
             t = time.perf_counter()
             env, ts = sides[str(dev)]
-            on_card = apg._map_state(lambda x: x.to(dev), state)
+            on_card = map_states(lambda x: x.to(dev), state)
             l_gpu, g_gpu = apg_grad(env, cfg, ts, on_card, noise.to(dev))
             torch.cuda.synchronize()
             gpu_s = time.perf_counter() - t
@@ -1493,6 +1539,316 @@ def last_modules_phase(dev, smi):
     return out
 
 
+@contextlib.contextmanager
+def count_launches():
+    """Within the block, every launch of the policy-step kernel by any
+    wrapper is counted in the yielded dict's ``n``."""
+    from pbrl_tpu_torch.ops import mimic_kernel
+
+    launch, seen = mimic_kernel.MimicStep._launch, {"n": 0}
+
+    def counted(self, *a):
+        seen["n"] += 1
+        return launch(self, *a)
+
+    mimic_kernel.MimicStep._launch = counted
+    try:
+        yield seen
+    finally:
+        mimic_kernel.MimicStep._launch = launch
+
+
+def put_down(state, every=4, drop=0.3):
+    """A per-env state with every ``every``-th env's root lowered by
+    ``drop`` m, so that its next step touches the floor with more than the
+    feet (a fall)."""
+    import torch
+
+    d = state.pipeline
+    low = (torch.arange(d.qpos.shape[0], device=d.qpos.device) % every == 0)
+    qpos = d.qpos.clone()
+    qpos[:, 2] = torch.where(low, qpos[:, 2] - drop, qpos[:, 2])
+    return state.replace(pipeline=d.replace(qpos=qpos)), low
+
+
+def api_triple(dev, smi, model, clip, walk_run):
+    """Phase 10a: ``make_train_functions`` against ``ppo.init`` and
+    ``ppo.train_step`` on the kernel (module docstring)."""
+    import dataclasses
+
+    import torch
+
+    from pbrl_tpu_torch.envs import EnvConfig, MimicVecEnv
+    from pbrl_tpu_torch.train import make_train_functions, ppo
+    from pbrl_tpu_torch.utils.configio import dict_to_config
+
+    walk_cfg = dict_to_config(ppo.TrainConfig, walk_run["train_config"])
+    cfg = dataclasses.replace(walk_cfg, total_env_steps=API_ITERS * walk_cfg.steps_per_iteration,
+                              seed=0)
+    env = MimicVecEnv(model, clip, dict_to_config(EnvConfig, walk_run["env_config"]), device=dev)
+    ks = env._kstep
+    init, step, evaluate = make_train_functions(env, cfg)
+    t = time.perf_counter()
+    sides = {}
+    for side in ("api", "ppo"):
+        ks.launches = 0
+        ts = init(dev) if side == "api" else ppo.init(env, cfg, dev)
+        hist = []
+        for _ in range(API_ITERS):
+            ts, m = step(ts) if side == "api" else ppo.train_step(env, cfg, ts)
+            hist.append(m)
+        torch.cuda.synchronize()
+        sides[side] = (ts, hist, ks.launches)
+    train_s = time.perf_counter() - t
+    (a, ha, la), (b, hb, lb) = sides["api"], sides["ppo"]
+    same = all(list(x) == list(y) and all(torch.equal(x[k], y[k]) for k in x)
+               for x, y in zip(ha, hb))
+    params = all(torch.equal(x, y) for x, y in zip(a.params().values(), b.params().values()))
+    kw = dict(num_envs=cfg.num_envs, num_steps=API_EVAL_STEPS)
+    ks.launches = 0
+    ea = evaluate(a.policy, a.obs_stats, generator=torch.Generator(device=dev).manual_seed(3),
+                  **kw)
+    eb = ppo.evaluate(env, b.policy, b.obs_stats, normalize_obs=cfg.normalize_obs,
+                      generator=torch.Generator(device=dev).manual_seed(3), **kw)
+    eval_same = all(torch.equal(ea[k], eb[k]) for k in ea) and list(ea) == list(eb)
+    log("api triple", f"make_train_functions against ppo.init/train_step: {API_ITERS} iterations "
+        f"of {cfg.num_envs} x {cfg.unroll_length} in {train_s:.2f}s for both; metrics bit-equal "
+        f"{same}, params bit-equal {params}, launches {la} / {lb}; evaluate equal {eval_same} "
+        f"({ks.launches} launches for both); reward_mean "
+        + " ".join(f"{float(m['reward_mean']):.6f}" for m in ha) + f" | {smi}")
+    want = API_ITERS * cfg.unroll_length
+    check(same and params, "make_train_functions does not train as ppo.init + ppo.train_step")
+    check(la == lb == want, f"api triple launches {la} / {lb} != {want}")
+    check(eval_same and ks.launches == 2 * API_EVAL_STEPS,
+          f"the triple's evaluate differs from ppo.evaluate: {ea} {eb}")
+    check(all(bool(torch.isfinite(v)) for m in ha for v in m.values()), "non-finite metrics")
+    return la
+
+
+def per_env_ppo(dev, smi, model, walk_run):
+    """Phase 10b: PPO on the per-env ``MimicEnv`` (module docstring)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pbrl_tpu_torch.envs import EnvConfig, MimicEnv
+    from pbrl_tpu_torch.mocap import load_clip
+    from pbrl_tpu_torch.train import make_train_functions, networks, ppo, running_stats
+    from pbrl_tpu_torch.utils.configio import dict_to_config
+
+    walk_cfg = dict_to_config(ppo.TrainConfig, walk_run["train_config"])
+    cfg = dataclasses.replace(walk_cfg, num_envs=PER_ENV_ENVS, seed=0,
+                              total_env_steps=PER_ENV_ITERS * PER_ENV_ENVS
+                              * walk_cfg.unroll_length)
+    env = MimicEnv(model, load_clip("walk", device=dev),
+                   dict_to_config(EnvConfig, walk_run["env_config"]))
+    init, step, _ = make_train_functions(env, cfg)
+    hist = []
+    t = time.perf_counter()
+    with track_steps() as built, count_launches() as launched:
+        ts = init(dev)
+        for _ in range(PER_ENV_ITERS):
+            ts, m = step(ts)
+            hist.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        # one rollout step with a quarter of the envs put down: the ended ones
+        # take the fresh reset's state, the others the step's
+        one = dataclasses.replace(cfg, unroll_length=1)
+        start, low = put_down(ts.env_state)
+        ts.env_state = start
+        gen = torch.Generator(device=dev).manual_seed(5)
+        eps = torch.randn((1, cfg.num_envs, env.action_size), generator=gen, device=dev)
+        # given the noise, the rollout draws only its fresh batch, from
+        # ts.generator: a twin of that generator draws the same batch here
+        ts.generator = torch.Generator(device=dev).manual_seed(6)
+        fresh = env.reset(cfg.num_envs, torch.Generator(device=dev).manual_seed(6))
+        with torch.no_grad():
+            mean, log_std = ts.policy(running_stats.normalize(ts.obs_stats, start.obs))
+            stepped = env.step(start, networks.sample_action(mean, log_std, noise=eps[0]))
+        final, _ = ppo.rollout(env, one, ts, noise=eps)
+        d = stepped.done > 0
+        exact = all(torch.equal(x[d], f[d]) and torch.equal(x[~d], y[~d]) for x, f, y in (
+            (final.pipeline.qpos, fresh.pipeline.qpos, stepped.pipeline.qpos),
+            (final.pipeline.time, fresh.pipeline.time, stepped.pipeline.time),
+            (final.info["episode_start"], fresh.info["episode_start"],
+             stepped.info["episode_start"])))
+        kept = (torch.equal(final.reward, stepped.reward) and torch.equal(final.done, stepped.done)
+                and all(torch.equal(final.metrics[k], stepped.metrics[k]) for k in final.metrics))
+    for i, h in enumerate(hist):
+        print(f"[smoke]   it {i} " + " ".join(f"{k}={h[k]:.5g}" for k in (
+            "reward_mean", "episode_done_frac", "loss_policy", "loss_value", "kl_approx")),
+            flush=True)
+    n_done = int(d.sum())
+    log("per-env ppo", f"MimicEnv (engine), {PER_ENV_ITERS} iterations of {cfg.num_envs} x "
+        f"{cfg.unroll_length} in {train_s:.2f}s; one step with {int(low.sum())} envs put down: "
+        f"{n_done} ended (of them put down {int((d & low).sum())}), restarts exact {exact}, "
+        f"reward/done/metrics kept {kept}; wrappers built {len(built)}, kernel launches "
+        f"{launched['n']} | {smi}")
+    check(all(np.isfinite(v) for h in hist for v in h.values()), f"non-finite metrics {hist}")
+    check(0 < n_done < cfg.num_envs, f"{n_done} of {cfg.num_envs} envs ended: no mixed step")
+    check(exact and kept, "the per-env auto-reset is not the done-selection")
+    check(not built and launched["n"] == 0, "the per-env env launched the kernel")
+    return {"launches": launched["n"], "train_s": train_s, "env": env, "ts": ts, "one": one}
+
+
+def per_env_rollout_ms(smi, env, one, ts, n=3):
+    """Phase 10b's ms per rollout step of ``MimicEnv`` (CUDA events, the
+    median of ``n`` one-step rollouts), with no other process on the card."""
+    import numpy as np
+    import torch
+
+    from pbrl_tpu_torch.train import ppo
+
+    ms = []
+    with count_launches() as launched:
+        for _ in range(n):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            ts.env_state, _ = ppo.rollout(env, one, ts)
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+    log("per-env ppo", f"rollout step at {one.num_envs} envs: {float(np.median(ms)):.3f} ms "
+        f"(CUDA events, median of {' '.join(f'{x:.3f}' for x in ms)}) | {smi}")
+    check(launched["n"] == 0, "the per-env env launched the kernel")
+    return float(np.median(ms))
+
+
+def per_env_apg(dev, smi, model, walk_run):
+    """Phase 10c: one APG iteration on the per-env ``MimicEnv`` (module
+    docstring)."""
+    import math
+
+    import torch
+
+    from pbrl_tpu_torch.envs import EnvConfig, MimicEnv
+    from pbrl_tpu_torch.mocap import load_clip
+    from pbrl_tpu_torch.train import apg
+    from pbrl_tpu_torch.utils.configio import dict_to_config
+
+    env = MimicEnv(model, load_clip("walk", device=dev),
+                   dict_to_config(EnvConfig, walk_run["env_config"]))
+    cfg = apg.APGConfig(num_envs=APG_PER_ENV_ENVS, horizon=APG_PER_ENV_HORIZON, action_noise=0.1,
+                        hidden=tuple(walk_run["train_config"]["hidden"]),
+                        total_env_steps=APG_PER_ENV_ENVS * APG_PER_ENV_HORIZON)
+    init, step, _ = apg.make_apg_functions(env, cfg)
+    t = time.perf_counter()
+    with track_steps() as built, count_launches() as launched:
+        ts = init(dev)
+        ts.env_state, low = put_down(ts.env_state)
+        t0 = ts.env_state.pipeline.time.clone()
+        value = {k: v.clone() for k, v in ts.value.state_dict().items()}
+        policy = {k: v.clone() for k, v in ts.policy.state_dict().items()}
+        ts, m = step(ts)
+        torch.cuda.synchronize()
+    apg_s = time.perf_counter() - t
+    m = {k: float(v) for k, v in m.items()}
+    st = ts.env_state
+    carried = torch.isclose(st.pipeline.time, t0 + cfg.horizon * env.config.effective_policy_dt,
+                            atol=1e-5)
+    ended = ~carried
+    frozen = all(torch.equal(v, value[k]) for k, v in ts.value.state_dict().items())
+    moved = any(not torch.equal(v, policy[k]) for k, v in ts.policy.state_dict().items())
+    log("per-env apg", f"MimicEnv (engine), {cfg.num_envs} envs x horizon {cfg.horizon} "
+        f"({int(low.sum())} put down): {apg_s:.2f}s; loss {m['loss']:.6g}, grad_norm "
+        f"{m['grad_norm']:.6g}, window_alive_frac {m['window_alive_frac']:.4f}; restarted "
+        f"{int(ended.sum())} (of them put down {int((ended & low).sum())}), carried on "
+        f"{int(carried.sum())}; critic frozen {frozen}, policy moved {moved}; wrappers built "
+        f"{len(built)}, kernel launches {launched['n']} | {smi}")
+    check(all(math.isfinite(v) for v in m.values()), f"non-finite APG metrics {m}")
+    check(frozen and moved, "APG on MimicEnv: the critic moved or the policy did not")
+    check(bool((ended >= low).all()) and 0 < int(ended.sum()) < cfg.num_envs
+          and bool(torch.equal(st.pipeline.time[ended], st.info["episode_start"][ended])),
+          "APG on MimicEnv did not restart the ended envs from a reset")
+    check(not built and launched["n"] == 0, "APG on the per-env env launched the kernel")
+    return {"launches": launched["n"], "apg_s": apg_s, "grad_norm": m["grad_norm"]}
+
+
+def start_tour():
+    """Phase 10d's subprocesses: ``examples/quickstart_torch.py
+    --train-steps QUICKSTART_STEPS`` on the card as two processes side by
+    side, sections 1-3 and sections 4-5, started first so that they run
+    beside phase 10's other parts."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    args = [["--sections", sec, "--train-steps", str(QUICKSTART_STEPS)]
+            for sec in TOUR_SECTIONS]
+    return [subprocess.Popen([sys.executable, "-c", QUICKSTART, *a], cwd=root,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for a in args], time.perf_counter()
+
+
+def stop_tour(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.communicate()
+
+
+def quickstart_tour(smi, procs, t):
+    """Phase 10d: the tour's result (module docstring)."""
+    import math
+    import re
+
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=QUICKSTART_TIMEOUT_S))
+    finally:
+        stop_tour(procs)
+    tour_s = time.perf_counter() - t
+    launches = []
+    for sec, p, (out, err) in zip(TOUR_SECTIONS, procs, outs):
+        check(p.returncode == 0, f"the tour's sections {sec} failed ({p.returncode}):\n"
+              f"{err[-3000:]}")
+        lines = out.splitlines()
+        for ln in lines:
+            if ln.strip() and not ln.startswith("{"):
+                print("[smoke]   " + ln, flush=True)
+        launches.append(json.loads(lines[-1])["kernel_launches"])
+        nums = [float(x) for ln in lines if not ln.startswith(("{", "===")) for x in
+                re.findall(r"-?\d+\.\d+(?:e-?\d+)?", ln)]
+        check(nums and all(math.isfinite(v) for v in nums),
+              f"non-finite numbers in the tour's sections {sec}")
+    text = "".join(out for out, _ in outs)
+    iters = max(1, QUICKSTART_STEPS // (256 * 8))  # the burst's TrainConfig.num_iterations
+    want = [0, 1 + iters * 8 + 4]
+    log("tour", f"examples/quickstart_torch.py --train-steps {QUICKSTART_STEPS}, sections "
+        f"{' and '.join(TOUR_SECTIONS)} side by side: {tour_s:.1f}s (process start included; "
+        f"beside phase 10a-c), kernel launches {launches} (want {want}) | {smi}")
+    check(launches == want, f"tour kernel launches {launches} != {want}")
+    check(all(f"=== {k}." in text for k in range(1, 6)), "a section of the tour did not run")
+    check("backend: kernel (the CUDA kernel)" in text, "the tour's env is not on the kernel")
+    return sum(launches)
+
+
+def api_phase(dev, smi, model, clip):
+    """Phase 10: the training API and the per-env envs (module docstring).
+    Returns the numbers the report line needs."""
+    from pbrl_tpu_torch.train import checkpoint
+
+    t_phase = time.time()
+    tour = start_tour()
+    try:
+        _, _, walk_run = checkpoint.load_policy(checkpoint.bundled_policy("walk"), device=dev)
+        out = {"api_launches": api_triple(dev, smi, model, clip, walk_run),
+               "per_env": per_env_ppo(dev, smi, model, walk_run),
+               "apg": per_env_apg(dev, smi, model, walk_run)}
+    except BaseException:
+        stop_tour(tour[0])
+        raise
+    out["quickstart_launches"] = quickstart_tour(smi, *tour)
+    p = out["per_env"]
+    p["rollout_ms"] = per_env_rollout_ms(smi, p.pop("env"), p.pop("one"), p.pop("ts"))
+    phase_s = time.time() - t_phase
+    log("api phase", f"{phase_s:.1f}s (budget {PHASE10_BUDGET_S}s) | {smi}")
+    check(phase_s <= PHASE10_BUDGET_S, f"phase 10 took {phase_s:.1f}s > {PHASE10_BUDGET_S}s")
+    return out
+
+
 def fmt(d):
     return " ".join(f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}" for k, v in d.items())
 
@@ -1708,7 +2064,10 @@ def main():
     # 9. the last modules: data parallelism, the slide joint, rollout, bench
     lm = last_modules_phase(dev, smi)
 
-    # 10. report
+    # 10. the training API, PPO and APG on the per-env env, the tour
+    ap = api_phase(dev, smi, model, clip)
+
+    # 11. report
     print(json.dumps({"kernels": [{
         "name": "mimic_step", "route": "cuda",
         "source": "pbrl_tpu_torch/csrc/mimic_step.cu",
@@ -1727,6 +2086,10 @@ def main():
         "dp_launches_per_rank": lm["dp"]["launches_per_rank"], "dp_env_steps_per_s":
         lm["dp"]["sps"], "slide_max_abs_err": lm["slide_err"],
         "rollout_launches": lm["rollout_launches"], "bench_env_steps_per_s": lm["bench_sps"],
+        "api_train_launches": ap["api_launches"],
+        "per_env_launches": ap["per_env"]["launches"] + ap["apg"]["launches"],
+        "per_env_rollout_ms": ap["per_env"]["rollout_ms"],
+        "quickstart_launches": ap["quickstart_launches"],
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

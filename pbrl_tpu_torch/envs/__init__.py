@@ -11,8 +11,10 @@ from pbrl_tpu_torch.envs.base import (  # noqa: F401
     registered_environments,
     variant1,
     variant2,
+    where_states,
 )
 from pbrl_tpu_torch.envs.replay import ReplayEnv  # noqa: F401
+from pbrl_tpu_torch.utils.tree import map_states  # noqa: F401
 from pbrl_tpu_torch.envs.mimic import MimicEnv  # noqa: F401
 from pbrl_tpu_torch.envs.vec import MimicVecEnv  # noqa: F401
 from pbrl_tpu_torch.envs import humanoid_task  # noqa: F401

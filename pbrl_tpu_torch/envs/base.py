@@ -18,6 +18,7 @@ from typing import Any, Callable, Dict
 import torch
 
 from pbrl_tpu_torch.engine.data import Data
+from pbrl_tpu_torch.utils.tree import map_states
 
 
 @dataclasses.dataclass(frozen=True)
@@ -293,13 +294,18 @@ def registered_environments():
 def stack_states(states):
     """Stack a list of equally shaped states (dataclasses, dicts, tensors)
     along a new leading axis."""
-    first = states[0]
-    if isinstance(first, torch.Tensor):
-        return torch.stack(states)
-    if isinstance(first, dict):
-        return {k: stack_states([s[k] for s in states]) for k in first}
-    if dataclasses.is_dataclass(first):
-        return dataclasses.replace(first, **{
-            f.name: stack_states([getattr(s, f.name) for s in states])
-            for f in dataclasses.fields(first)})
-    return first
+    return map_states(lambda *xs: torch.stack(xs), *states)
+
+
+def where_states(mask: torch.Tensor, a, b):
+    """Per env, state ``a`` where ``mask`` (B,) is true, else ``b``. A tensor
+    without the leading env axis (``Contact``'s per-slot layout, shared by
+    the batch and rebuilt by every step) is ``b``'s."""
+    n = mask.shape[0]
+
+    def sel(x, y):
+        if x.dim() == 0 or x.shape[0] != n:
+            return y
+        return torch.where(mask.reshape((-1,) + (1,) * (x.dim() - 1)), x, y)
+
+    return map_states(sel, a, b)

@@ -20,6 +20,7 @@ import torch
 import torch.distributed as dist
 
 from pbrl_tpu_torch.parallel import distributed
+from pbrl_tpu_torch.utils.tree import map_states
 
 DATA_AXIS = "data"  # pbrl_tpu's name of the mesh axis the env batch is split on
 
@@ -90,11 +91,4 @@ def mesh_of(env) -> Mesh:
 def shard_batch(mesh: Mesh, tree):
     """This rank's rows of a batched tree (a tensor, or a dataclass or dict
     of them, nested)."""
-    if isinstance(tree, torch.Tensor):
-        return mesh.rows(tree)
-    if isinstance(tree, dict):
-        return {k: shard_batch(mesh, v) for k, v in tree.items()}
-    if dataclasses.is_dataclass(tree):
-        return dataclasses.replace(tree, **{f.name: shard_batch(mesh, getattr(tree, f.name))
-                                            for f in dataclasses.fields(tree)})
-    return tree
+    return map_states(mesh.rows, tree)

@@ -14,6 +14,10 @@ estimate of it:
   input); ``done`` is detached, rewards after termination are masked;
 * the policy mean as the action, plus ``action_noise`` times a normal draw
   (reparameterised, so it stays differentiable);
+* a per-env env (``MimicEnv``, whose state holds engine ``Data`` and its
+  ``Contact``) trains alike: its state is detached and restarted leaf by
+  leaf (:func:`~pbrl_tpu_torch.envs.base.where_states`), as pbrl_tpu's
+  tree map does;
 * only the policy is updated, by ``optim.Adam`` with ``zero_nans``, the
   global-norm clip and the linear decay over ``num_iterations``; the
   critic and the obs statistics ride along, so an APG run is evaluated and
@@ -60,12 +64,14 @@ from typing import Callable, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from pbrl_tpu_torch.envs.base import where_states
 from pbrl_tpu_torch.maths.numeric import full_f32
 from pbrl_tpu_torch.parallel.mesh import mesh_of, shard_batch
 from pbrl_tpu_torch.train import checkpoint as ckpt
 from pbrl_tpu_torch.train import networks, optim, ppo, running_stats
 from pbrl_tpu_torch.utils.configio import save_json_config
 from pbrl_tpu_torch.utils.profiling import profile_scope
+from pbrl_tpu_torch.utils.tree import map_states
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,18 +115,6 @@ def _check_env(env) -> None:
 
 def _norm_obs(config: APGConfig, stats, obs):
     return running_stats.normalize(stats, obs) if config.normalize_obs else obs
-
-
-def _map_state(fn, *states):
-    """``fn`` over the tensors of env states of one type (a dict field, as
-    ``metrics``, key by key)."""
-    s0 = states[0]
-    out = {}
-    for f in dataclasses.fields(s0):
-        vals = [getattr(s, f.name) for s in states]
-        out[f.name] = ({k: fn(*(v[k] for v in vals)) for k in vals[0]}
-                       if isinstance(vals[0], dict) else fn(*vals))
-    return dataclasses.replace(s0, **out)
 
 
 def make_optimizer(config: APGConfig) -> optim.Adam:
@@ -222,7 +216,7 @@ def loss_and_grad(env, config: APGConfig, ts: ppo.TrainState, noise=None,
     and the gradient are this rank's shares (:func:`window_loss`)."""
     for p in ts.policy.parameters():
         p.grad = None
-    entry = _map_state(torch.Tensor.detach, ts.env_state)
+    entry = map_states(torch.Tensor.detach, ts.env_state)
     sync = timing is not None
     with full_f32():
         with profile_scope("apg/forward", sync=sync) as fwd:
@@ -271,10 +265,8 @@ def train_step(env, config: APGConfig, ts: ppo.TrainState,
             it = ts.env_steps // config.steps_per_iteration
             if it % config.reset_every == config.reset_every - 1:
                 d = torch.ones_like(d)
-        final = _map_state(torch.Tensor.detach, aux["final_state"])
-        ts.env_state = _map_state(
-            lambda a, b: torch.where(d.reshape((-1,) + (1,) * (a.dim() - 1)), a, b),
-            fresh, final)
+        ts.env_state = where_states(d, fresh, map_states(torch.Tensor.detach,
+                                                         aux["final_state"]))
     ts.env_steps += config.steps_per_iteration
     return ts, {"loss": loss, "grad_norm": grad_norm, **metrics}
 

@@ -4,7 +4,14 @@ Counterpart of ``pbrl_tpu/train/ppo.py``: the same ``TrainConfig``, GAE,
 clipped-surrogate loss, observation normalisation, minibatch epochs and
 optimiser (:mod:`pbrl_tpu_torch.train.optim`), run eagerly on one device.
 Every rollout step is one ``env.step`` (for ``MimicVecEnv``: one launch of
-the policy-step kernel on the card) and one ``env.auto_reset``.
+the policy-step kernel on the card) and one ``env.auto_reset``. A per-env
+env (no ``is_vectorized``, e.g. ``MimicEnv``, whose state holds engine
+``Data``) has no ``auto_reset``: as in pbrl_tpu, a fresh batch is reset
+and taken where the step ended an episode, and the finished step's
+reward, done and metrics are kept. Such an env is batched already, so
+nothing is vmapped; it carries no mesh, so it trains in one process.
+:func:`make_train_functions` binds ``init``, ``train_step`` and
+``evaluate`` to an env and a config, as pbrl_tpu's does.
 
 Random draws (action noise, resets, the per-epoch permutations) come from
 the ``torch.Generator`` in the train state, on the run's device.
@@ -38,12 +45,14 @@ iterations while still numbering the final checkpoint
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Callable, Dict, Optional
 
 import torch
 import torch.distributed as dist
 
+from pbrl_tpu_torch.envs.base import where_states
 from pbrl_tpu_torch.parallel.mesh import SINGLE, Mesh, mesh_of
 from pbrl_tpu_torch.train import checkpoint as ckpt
 from pbrl_tpu_torch.train import networks, optim, running_stats
@@ -153,6 +162,15 @@ def init(env, config: TrainConfig, device="cuda") -> TrainState:
                       generator=generator, env_steps=0, mesh=mesh)
 
 
+def reset_done(nstate, fresh):
+    """A per-env env's auto-reset (pbrl_tpu's, ``ppo.py:145-155``): the
+    ``fresh`` state where ``nstate`` is done, ``nstate`` elsewhere, with
+    ``nstate``'s reward, done and metrics kept."""
+    merged = where_states(nstate.done > 0, fresh, nstate)
+    return dataclasses.replace(merged, reward=nstate.reward, done=nstate.done,
+                               metrics=nstate.metrics)
+
+
 @torch.no_grad()
 def rollout(env, config: TrainConfig, ts: TrainState, noise: Optional[torch.Tensor] = None):
     """``unroll_length`` steps of the stochastic policy with auto-reset.
@@ -163,6 +181,7 @@ def rollout(env, config: TrainConfig, ts: TrainState, noise: Optional[torch.Tens
     (T, B, ...) tensors of this rank's B envs)."""
     state = ts.env_state
     mesh = ts.mesh
+    vectorized = getattr(env, "is_vectorized", False)
     steps = []
     for t in range(config.unroll_length):
         obs_n = _norm_obs(config, ts.obs_stats, state.obs)
@@ -176,7 +195,10 @@ def rollout(env, config: TrainConfig, ts: TrainState, noise: Optional[torch.Tens
         steps.append(Transition(obs=state.obs, action=action, log_prob=lp,
                                 reward=nstate.reward * config.reward_scale,
                                 done=nstate.done, value=val))
-        state = env.auto_reset(nstate, ts.generator)
+        if vectorized:
+            state = env.auto_reset(nstate, ts.generator)
+        else:
+            state = reset_done(nstate, env.reset(config.num_envs, ts.generator))
     traj = Transition(**{f.name: torch.stack([getattr(s, f.name) for s in steps])
                          for f in dataclasses.fields(Transition)})
     return state, traj
@@ -340,6 +362,15 @@ def train_step(env, config: TrainConfig, ts: TrainState,
     returns (ts, metrics)."""
     env_state, traj = rollout(env, config, ts, noise)
     return ts, learn(config, ts, env_state, traj, perms)
+
+
+def make_train_functions(env, config: TrainConfig):
+    """(init_fn(device="cuda"), train_step_fn(ts, ...), eval_fn(policy,
+    obs_stats, ...)) bound to ``env`` and ``config``, as pbrl_tpu's
+    ``make_train_functions`` returns them: :func:`init`, :func:`train_step`
+    and :func:`evaluate`, for a vectorized or a per-env env."""
+    return (functools.partial(init, env, config), functools.partial(train_step, env, config),
+            functools.partial(evaluate, env, normalize_obs=config.normalize_obs))
 
 
 def same_checkpoint(mesh: Mesh, step: Optional[int], device) -> None:

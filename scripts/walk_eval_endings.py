@@ -18,7 +18,9 @@ stripped as both ``eval`` commands strip them):
   side that runs where JAX is not installed).
 
 For each side it prints how many envs end early and the mean live steps
-(as the eval counts them); with ``--t0``, for each env at which step its
+(as the eval counts them), each early ending with its start time, its step
+and its cause (a fall, the end of a clip that does not loop, or another
+termination); with ``--t0``, for each env at which step its
 episode ends on each side (the first ``done``), whether the fall flag
 ended it, and how fast pbrl_tpu's qpos drifts from the port's. It tells a
 fault of the port from a fall that the reference shares.
@@ -112,13 +114,14 @@ def jax_side(clip, run, t0, steps, physics_mode):
     if physics_mode == "engine":
         step = jax.jit(step)
 
-    qs, dones, falls = [], [], []
+    qs, dones, falls, times = [], [], [], []
     for _ in range(steps):
         state = step(state)
         qs.append(np.asarray(state.qpos))
         dones.append(np.asarray(state.done))
         falls.append(np.asarray(state.metrics["fall"]))
-    return np.stack(qs), np.stack(dones), np.stack(falls)
+        times.append(np.asarray(state.time))
+    return np.stack(qs), np.stack(dones), np.stack(falls), np.stack(times)
 
 
 def torch_side(clip, run, t0, steps, device):
@@ -134,7 +137,7 @@ def torch_side(clip, run, t0, steps, device):
     env = MimicVecEnv(humanoid_model(), load_clip(clip, device=device), _env_config(run),
                       device=device)
     state = env.reset(len(t0), t0=torch.tensor(t0, dtype=torch.float32, device=device))
-    qs, dones, falls = [], [], []
+    qs, dones, falls, times = [], [], [], []
     with torch.no_grad():
         for _ in range(steps):
             mean, _ = policy(running_stats.normalize(stats, state.obs))
@@ -142,7 +145,18 @@ def torch_side(clip, run, t0, steps, device):
             qs.append(state.qpos.cpu().numpy())
             dones.append(state.done.cpu().numpy())
             falls.append(state.metrics["fall"].cpu().numpy())
-    return np.stack(qs), np.stack(dones), np.stack(falls)
+            times.append(state.time.cpu().numpy())
+    return np.stack(qs), np.stack(dones), np.stack(falls), np.stack(times)
+
+
+def cause(clip, fall, time, e, j):
+    """What ended env ``j`` at step ``e``: a fall, the end of a clip that
+    does not loop, or another termination (pose, episode time)."""
+    if fall[e, j] > 0:
+        return "fall"
+    if not clip.loop and time[e, j] >= float(clip.cycle_time):
+        return "clip_end"
+    return "other"
 
 
 def first_end(done):
@@ -173,8 +187,9 @@ def main(argv=None):
     from pbrl_tpu_torch.train import checkpoint
 
     run = checkpoint.load_policy(checkpoint.bundled_policy(args.clip), device="cpu")[2]
+    clip = load_clip(args.clip, device="cpu")
     if args.grid:
-        cycle = float(load_clip(args.clip, device="cpu").cycle_time)
+        cycle = float(clip.cycle_time)
         t0 = [float(np.float32(cycle * i / args.grid)) for i in range(args.grid)]
     else:
         t0 = [_float(x) for x in args.t0]
@@ -186,8 +201,10 @@ def main(argv=None):
                                      "cpu" if side == "port" else "cuda")
         else:
             sides[side] = jax_side(args.clip, run, t0, args.steps, side)
-        ends = first_end(sides[side][1])
-        early = [(x, e) for x, e in zip(t0, ends) if e is not None]
+        _, done, fall, times = sides[side]
+        ends = first_end(done)
+        early = [(x, e, cause(clip, fall, times, e, j))
+                 for j, (x, e) in enumerate(zip(t0, ends)) if e is not None]
         print(json.dumps({"side": side, "seconds": time.perf_counter() - t,
                           "envs": len(t0), "steps": args.steps, "ended_early": len(early),
                           "mean_live_steps": sum(args.steps if e is None else e
@@ -196,10 +213,10 @@ def main(argv=None):
     if args.grid or "port" not in sides:
         return 0
     tq = sides["port"][0]
-    ends = {k: first_end(d) for k, (_, d, _) in sides.items()}
+    ends = {k: first_end(d) for k, (_, d, _, _) in sides.items()}
     for j, x in enumerate(t0):
         row = {"t0": x, "t0_hex": x.hex()}
-        for k, (q, _, f) in sides.items():
+        for k, (q, _, f, _) in sides.items():
             e = ends[k][j]
             row[f"{k}_live_steps"] = e
             row[f"{k}_fall"] = None if e is None else bool(f[e, j] > 0)

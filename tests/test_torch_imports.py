@@ -40,8 +40,41 @@ def test_every_module_listed():
                  "pbrl_tpu_torch.utils.guards", "pbrl_tpu_torch.utils.profiling",
                  "pbrl_tpu_torch.mocap.diffmimic", "pbrl_tpu_torch.parallel.mesh",
                  "pbrl_tpu_torch.parallel.distributed", "pbrl_tpu_torch.model.mjcf",
-                 "pbrl_tpu_torch.io_native", "pbrl_tpu_torch.bench"):
+                 "pbrl_tpu_torch.io_native", "pbrl_tpu_torch.bench",
+                 "pbrl_tpu_torch.maths.numeric", "pbrl_tpu_torch.ops.field_physics",
+                 "pbrl_tpu_torch.mocap.clip", "pbrl_tpu_torch.model.spec"):
         assert want in mods
+
+
+def test_package_exports():
+    """pbrl_tpu's training API and package exports, on the port: the
+    training names, the linear algebra of ``ops`` (whose import builds no
+    kernel and imports no ``mimic_kernel``) and ``maths.spatial``."""
+    code = "\n".join([
+        "import sys",
+        *[f"sys.modules[{m!r}] = None" for m in BLOCKED],
+        "import pbrl_tpu_torch.ops as ops",
+        "assert 'pbrl_tpu_torch.ops.mimic_kernel' not in sys.modules",
+        "from pbrl_tpu_torch.ops import cholesky_factor, cholesky_solve, solve_spd",
+        "from pbrl_tpu_torch.ops import linalg",
+        "assert (cholesky_factor, cholesky_solve, solve_spd) == (linalg.cholesky_factor, "
+        "linalg.cholesky_solve, linalg.solve_spd)",
+        "import pbrl_tpu_torch.maths as maths",
+        "from pbrl_tpu_torch.maths import spatial",
+        "assert maths.spatial is spatial and callable(spatial.cross)",
+        "from pbrl_tpu_torch.train import (APGTrainState, TrainState, Transition, "
+        "make_train_functions, make_apg_functions)",
+        "from pbrl_tpu_torch.train import ppo",
+        "assert APGTrainState is TrainState is ppo.TrainState and Transition is ppo.Transition",
+        "assert make_train_functions is ppo.make_train_functions",
+        "from pbrl_tpu_torch.envs import map_states, where_states",
+        "print('ok')",
+    ])
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip() == "ok"
 
 
 def test_port_imports_with_jax_blocked():

@@ -86,6 +86,7 @@ class ToyEnv:
     """The torch twin of ``JToyEnv``; with ``seed``, obs are uniform draws
     in [-1, 1) instead (MatchEnv proper), for the learning test."""
 
+    is_vectorized = True
     observation_size = OBS
     action_size = OBS
 

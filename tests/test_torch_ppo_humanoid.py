@@ -46,6 +46,8 @@ class _FedResets:
     """The port's env with its auto-reset start times taken in turn from
     ``t0s`` (one (B,) tensor per rollout step)."""
 
+    is_vectorized = True
+
     def __init__(self, env, t0s):
         self.env, self.t0s = env, list(t0s)
         self.observation_size, self.action_size = env.observation_size, env.action_size

@@ -34,6 +34,7 @@ class ShardToyEnv:
     this rank's rows of the batch: obs and episode ends by the global env
     index."""
 
+    is_vectorized = True
     observation_size = OBS
     action_size = OBS
 

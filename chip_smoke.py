@@ -38,7 +38,9 @@ with the seconds elapsed:
    of the window and the kernel launches per env step; then the envs that
    ended before the last step in that eval (start time, step, and what
    ended them: a fall, the NaN quarantine, the clip's end or another
-   termination), recorded during it;
+   termination), recorded during it; and the kernel's time (CUDA events) at
+   4096 envs on that eval's states at step MID_EVAL_STEP, kept during it,
+   with their bound counted as for the start states;
 5. train: PPO through ``ppo.train`` with the walk run's ``TrainConfig``
    (2048 envs x unroll 16, 1024-512 MLPs) from a seeded fresh init for
    TRAIN_ITERS iterations, with every metric finite in every iteration and
@@ -158,7 +160,28 @@ with the seconds elapsed:
    kernel launches are counted (none in sections 1-3; 1 in section 4, 8
    per PPO iteration and 4 in the closing eval in section 5); then (b)'s
    ms per rollout step, timed alone;
-11. one JSON line describing the kernel, the card's ``nvidia-smi`` line, and
+11. the backflip investigation's tools, each through its ``main(argv)`` in
+   this process with the launches of the wrappers it built counted (within
+   PHASE11_BUDGET_S): (a) ``scripts/torch_backflip_ceiling.py --steps 256``
+   on backflip's bundled policy: every envelope row's reward and terms
+   within CEILING_TOL of CEILING_LOG, and part (c)'s rollout with 256
+   launches and finite numbers, printed beside the log's (no bound: the log
+   was taken on an earlier checkpoint of a chaotic clip); (b)
+   ``scripts/torch_measure_lag.py`` on ``artifacts/backflip.npz`` with the
+   clip on the card: LAG_LOG's best lag (-2.75 steps) and every SSE within
+   LAG_TOL of the log's; then ``cli rollout --clip backflip --steps 240`` (240
+   launches) and the lag of that rollout, reported; (c)
+   ``scripts/torch_diag_rollout.py``: walk for 300 steps (300 launches,
+   alive 300, ``mean_reward`` >= MIN_EVAL_REWARD) and backflip for 256 (256
+   launches, finite, the same numbers as the ceiling's part (c)); (d)
+   campaign 33's stiffness sweep, ``cli eval --clip backflip --env-set
+   kp_scale=K --env-set kd_scale=D`` for each of SWEEP's pairs at
+   RECIPE_ENVS x RECIPE_STEPS with RECIPE_STEPS launches, the kernel's kp
+   and kd tables the defaults times K and D to GAIN_RTOL, each eval within
+   SWEEP_REWARD_TOL of the reward pbrl_tpu logged and SWEEP_LENGTH_TOL of
+   its episode length, both ways, and kp 2.0 below phase 6's unscaled
+   backflip eval (pbrl_tpu's logs are read from the checkout at run time);
+12. one JSON line describing the kernel, the card's ``nvidia-smi`` line, and
    last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero without the last line.
@@ -250,6 +273,27 @@ QUICKSTART_STEPS = 32768  # phase 10d: 16 PPO iterations of 256 envs x 8
 QUICKSTART_TIMEOUT_S = 300
 TOUR_SECTIONS = ("1,2,3", "4,5")  # two processes side by side: phase 10's budget
 PHASE10_BUDGET_S = 90
+MID_EVAL_STEP = 150      # phase 4: the walk eval's states timed mid-eval
+PHASE11_BUDGET_S = 120
+# pbrl_tpu's logs under the checkout, read at run time: the ceiling's envelope
+# rows and part (c) (scripts/backflip_ceiling.py), and the SSE at each lag from
+# -3 to 6 steps in steps of 0.25 with the best lag (scripts/measure_lag.py on
+# artifacts/backflip.npz)
+CEILING_LOG = "logs/backflip_ceiling.json"
+CEILING_TOL = 2e-4
+TOOL_STEPS = 256         # the ceiling's reference times and rollout, backflip's diag
+LAG_LOG = "logs/backflip_lag_r5.json"
+LAG_TOL = 1e-4
+LAG_ROLLOUT_STEPS = 240  # the artifact's length (scripts/render_all_skills.sh)
+DIAG_WALK_STEPS = 300
+# campaign 33's zero-training stiffness sweep (scripts/campaigns/campaign33.sh:83-91):
+# kp_scale, kd_scale and the log of pbrl_tpu's eval at that pair (128 envs x 256)
+SWEEP = ((1.25, 1.118, "logs/eval_bf_kp125.json"),
+         (1.5, 1.225, "logs/eval_bf_kp15.json"),
+         (2.0, 1.414, "logs/eval_bf_kp20.json"))
+SWEEP_REWARD_TOL = 0.03  # |port - log|: about 3 standard errors of a 128-env mean
+SWEEP_LENGTH_TOL = 0.1   # |port / log - 1| of the episode length
+GAIN_RTOL = 1e-6         # the kernel's kp/kd tables against the scaled defaults
 # phase 10d: the tour in a subprocess, then the launches of the kernel wrappers it built
 QUICKSTART = """
 import json, runpy, sys
@@ -444,13 +488,14 @@ def bound(sp, flop_per_env, B):
 
 
 @contextlib.contextmanager
-def watch_endings(env, keep=0):
+def watch_endings(env, keep=0, keep_at=None):
     """Within the block, record what each ``env.step`` ends: the start
     times, each step's done and fall flags and end time, and whether the
     physics' raw outputs were finite (the env's NaN quarantine turns a
     non-finite state into a fall); with ``keep``, also the physics' inputs
     (the kernel's, with the kernel backend) of the first ``keep`` envs at
-    every step. A few small device operations per step; no copy to the
+    every step; with ``keep_at``, those of every env at that step (0-based)
+    as ``kept_at``. A few small device operations per step; no copy to the
     host."""
     physics, step = env._physics, env.step
     rec = {"env": env, "t0": None, "done": [], "fall": [], "bad": [], "time": [], "inputs": []}
@@ -458,6 +503,8 @@ def watch_endings(env, keep=0):
     def spy(q, v, u):
         if keep:
             rec["inputs"].append(tuple(x[:keep].clone() for x in (q, v, u)))
+        if len(rec["bad"]) == keep_at:
+            rec["kept_at"] = tuple(x.clone() for x in (q, v, u))
         out = physics(q, v, u)
         rec["bad"].append(~(out[0].isfinite().all(1) & out[1].isfinite().all(1)))
         return out
@@ -754,16 +801,16 @@ def recipes_phase(dev, smi, model):
               f"{clip}: eval_reward {metrics['eval_reward']} < {want_r} - 0.05")
         check(metrics["eval_episode_length"] >= 0.9 * want_len,
               f"{clip}: eval_episode_length {metrics['eval_episode_length']} < 0.9 x {want_len}")
-        return rec
+        return rec, metrics
 
-    out = {"launches": {}, "self_ms": {}, "self_bound_ms": {}, "self_err": {}}
+    out = {"launches": {}, "self_ms": {}, "self_bound_ms": {}, "self_err": {}, "evals": {}}
     for clip in RECIPES:
         policy, stats, run = checkpoint.load_policy(checkpoint.bundled_policy(clip), device=dev)
         check(run["clip"] == clip, f"the bundled {clip} policy was trained on {run['clip']}")
         env = MimicVecEnv(model, load_clip(clip, device=dev), cli._env_config(run), device=dev)
         keep = SELF_STATES if clip in SELF_CONTACT_CLIPS else 0
         normalize = run["train_config"].get("normalize_obs", True)
-        rec = run_eval(clip, env, policy, stats, normalize, keep)
+        rec, out["evals"][clip] = run_eval(clip, env, policy, stats, normalize, keep)
         out["launches"][clip] = env._kstep.launches
         if not keep:
             continue
@@ -1849,6 +1896,215 @@ def api_phase(dev, smi, model, clip):
     return out
 
 
+def run_tool(name, argv):
+    """``scripts/<name>.py``'s ``main(argv)`` in this process, with its
+    standard output captured: the JSON lines it printed, and the
+    policy-step wrappers the envs it built own."""
+    import importlib.util
+    import io
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    text = io.StringIO()
+    with track_steps() as built, contextlib.redirect_stdout(text):
+        rc = mod.main(argv)
+    check(rc == 0, f"scripts/{name}.py {' '.join(argv)} exited {rc}")
+    return [json.loads(ln) for ln in text.getvalue().splitlines() if ln.startswith("{")], built
+
+
+def finite(*xs):
+    import math
+
+    return all(math.isfinite(x) for x in xs)
+
+
+def read_log(rel):
+    """One of pbrl_tpu's logs in the checkout: a JSON file, or a run's
+    output whose last JSON line is the result."""
+    import os
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), rel)) as f:
+        text = f.read()
+    try:
+        return json.loads(text)
+    except json.JSONDecodeError:
+        return json.loads([ln for ln in text.splitlines() if ln.startswith("{")][-1])
+
+
+def ceiling_check(smi):
+    """Phase 11a: the reward ceiling of backflip's bundled policy (module
+    docstring)."""
+    t = time.perf_counter()
+    (out,), built = run_tool("torch_backflip_ceiling", ["--steps", str(TOOL_STEPS)])
+    wall = time.perf_counter() - t
+    launches = sum(k.launches for k in built)
+    want = read_log(CEILING_LOG)
+    env_rows, want_rows = out["envelope"], want["envelope"]
+    check(list(env_rows) == list(want_rows)
+          and all(list(env_rows[r]) == list(want_rows[r]) for r in want_rows),
+          f"envelope rows or keys {list(env_rows)} differ from {CEILING_LOG}'s")
+    diffs = {row: max(abs(env_rows[row][k] - v) for k, v in w.items())
+             for row, w in want_rows.items()}
+    for row, vals in env_rows.items():
+        print(f"[smoke]   envelope {row:>10}: {json.dumps(vals)} (max |port - log| "
+              f"{diffs[row]:.1e})", flush=True)
+    ck = out["checkpoint"]
+    log("ceiling", f"scripts/torch_backflip_ceiling.py --steps {TOOL_STEPS}: {wall:.2f}s, kernel "
+        f"launches {launches}; part (c) {json.dumps(ck)} (pbrl_tpu's log, an earlier checkpoint: "
+        f"{json.dumps(want['checkpoint'])}); ceiling at 1 frame "
+        f"{out['ceiling_at_1frame_timing']}, fraction {out['eval_fraction_of_ceiling']} | {smi}")
+    check(max(diffs.values()) <= CEILING_TOL + 1e-9,
+          f"the envelope is not the log's to {CEILING_TOL}: {diffs}")
+    check(launches == out["launches"] == TOOL_STEPS,
+          f"ceiling kernel launches {launches} / {out['launches']} != {TOOL_STEPS}")
+    check(finite(out["ceiling_at_1frame_timing"], out["eval_fraction_of_ceiling"],
+                 *[v for k, v in ck.items() if k != "terms_mean"], *ck["terms_mean"].values()),
+          f"non-finite ceiling part (c): {ck}")
+    return {"ckpt": ck, "launches": launches, "s": wall}
+
+
+def lag_check(smi):
+    """Phase 11b: the lag of the artifact and of a rollout on the card
+    (module docstring)."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t = time.perf_counter()
+    (lag,), _ = run_tool("torch_measure_lag",
+                         [os.path.join(root, "artifacts", "backflip.npz"), "backflip"])
+    wall = time.perf_counter() - t
+    want = read_log(LAG_LOG)
+    d_sse = max(abs(a - b) for a, b in zip(lag["sse"], want["sse"]))
+    log("lag", f"scripts/torch_measure_lag.py artifacts/backflip.npz backflip: {wall:.2f}s, best "
+        f"lag {lag['best_lag_steps']} steps ({lag['best_lag_ms']:.2f} ms), SSE at best "
+        f"{lag['sse_at_best']:.6f}, at 0 {lag['sse_at_zero']:.6f}; max |SSE - log| {d_sse:.2e} "
+        f"over {len(lag['sse'])} lags (pbrl_tpu: {want['best_lag_steps']}) | {smi}")
+    check(lag["best_lag_steps"] == want["best_lag_steps"],
+          f"best lag {lag['best_lag_steps']} != {want['best_lag_steps']}")
+    check(lag["lags_steps"] == want["lags_steps"] and d_sse <= LAG_TOL,
+          f"the lag's SSE is not the log's to {LAG_TOL}: {d_sse}")
+    npz = os.path.join(root, "build", "smoke_backflip_rollout.npz")
+    t = time.perf_counter()
+    _, built = run_cli(["rollout", "--clip", "backflip", "--steps", str(LAG_ROLLOUT_STEPS),
+                        "--out", npz])
+    launches = sum(k.launches for k in built)
+    (own,), _ = run_tool("torch_measure_lag", [npz, "backflip"])
+    wall = time.perf_counter() - t
+    os.remove(npz)
+    log("lag", f"cli rollout --clip backflip --steps {LAG_ROLLOUT_STEPS} on the card and its lag: "
+        f"{wall:.2f}s, kernel launches {launches}; best lag {own['best_lag_steps']} steps "
+        f"({own['best_lag_ms']:.2f} ms), SSE at best {own['sse_at_best']:.6f}, at 0 "
+        f"{own['sse_at_zero']:.6f} (the artifact's: {lag['best_lag_steps']}, "
+        f"{lag['sse_at_best']:.6f}) | {smi}")
+    check(launches == LAG_ROLLOUT_STEPS, f"rollout kernel launches {launches} != "
+          f"{LAG_ROLLOUT_STEPS}")
+    check(finite(own["best_lag_steps"], own["sse_at_best"]), f"non-finite lag {own}")
+    return {"best_lag": lag["best_lag_steps"], "own_best_lag": own["best_lag_steps"],
+            "launches": launches}
+
+
+def diag_check(smi, ceiling):
+    """Phase 11c: the diagnostic rollouts of walk and backflip (module
+    docstring)."""
+    import os
+
+    import numpy as np
+
+    out = {}
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    for clip, steps in (("walk", DIAG_WALK_STEPS), ("backflip", TOOL_STEPS)):
+        npz = os.path.join(build, f"smoke_diag_{clip}.npz")
+        t = time.perf_counter()
+        (line,), built = run_tool("torch_diag_rollout", ["--clip", clip, "--steps", str(steps),
+                                                         "--out", npz])
+        wall = time.perf_counter() - t
+        launches = sum(k.launches for k in built)
+        with np.load(npz) as z:
+            arrays = {k: z[k] for k in z.files}
+        os.remove(npz)
+        print("[smoke]   " + json.dumps(line), flush=True)
+        log(f"diag {clip}", f"scripts/torch_diag_rollout.py --clip {clip} --steps {steps}: "
+            f"{wall:.2f}s, kernel launches {launches}, mean reward {line['mean_reward']}, alive "
+            f"{line['alive']}, npz {sorted(arrays)} | {smi}")
+        check(launches == line["launches"] == steps,
+              f"diag {clip} kernel launches {launches} / {line['launches']} != {steps}")
+        check(arrays["qpos"].shape == (steps, 35)
+              and all(np.isfinite(a).all() for a in arrays.values())
+              and finite(line["mean_reward"], *line["terms_mean"].values()),
+              f"diag {clip}: non-finite or misshapen output")
+        out[clip] = {"launches": launches, "mean_reward": line["mean_reward"],
+                     "alive": line["alive"]}
+    walk = out["walk"]
+    check(walk["alive"] == DIAG_WALK_STEPS and walk["mean_reward"] >= MIN_EVAL_REWARD,
+          f"walk's diag rollout: alive {walk['alive']}, mean reward {walk['mean_reward']}")
+    check(out["backflip"]["mean_reward"] == ceiling["mean_reward"],
+          "backflip's diag rollout and the ceiling's part (c) differ: "
+          f"{out['backflip']['mean_reward']} / {ceiling['mean_reward']}")
+    return out
+
+
+def sweep_check(smi, unscaled):
+    """Phase 11d: campaign 33's stiffness sweep through ``cli eval`` (module
+    docstring)."""
+    import numpy as np
+
+    from pbrl_tpu_torch.mocap.skeleton import generate_kp_kd_gains
+
+    base_kp, base_kd = (np.asarray(g, np.float64) for g in generate_kp_kd_gains())
+    out = []
+    for kp, kd, src in SWEEP:
+        logged = read_log(src)
+        want_r, want_len = logged["eval_reward"], logged["eval_episode_length"]
+        t = time.perf_counter()
+        lines, built = run_cli(["eval", "--clip", "backflip", "--num-envs", str(RECIPE_ENVS),
+                                "--steps", str(RECIPE_STEPS), "--env-set", f"kp_scale={kp}",
+                                "--env-set", f"kd_scale={kd}"])
+        wall = time.perf_counter() - t
+        m, launches = lines[-1], sum(k.launches for k in built)
+        gains_err = max(max(np.max(np.abs(np.asarray(k.spec.kp) / (base_kp * kp) - 1)),
+                            np.max(np.abs(np.asarray(k.spec.kd) / (base_kd * kd) - 1)))
+                        for k in built)
+        log(f"sweep kp {kp}", f"cli eval --clip backflip --env-set kp_scale={kp} --env-set "
+            f"kd_scale={kd}, {RECIPE_ENVS} envs x {RECIPE_STEPS} steps: {wall:.2f}s, kernel "
+            f"launches {launches}: {m['eval_reward']:.5f} / {m['eval_episode_length']:.3f}; "
+            f"recorded on a TPU ({src}, 128 envs): {want_r:.5f} / {want_len:.3f}; the kernel's "
+            f"kp/kd tables against the scaled defaults: max relative error {gains_err:.1e} "
+            f"| {smi}")
+        check(launches == RECIPE_STEPS, f"kp {kp}: kernel launches {launches} != {RECIPE_STEPS}")
+        check(built and gains_err <= GAIN_RTOL,
+              f"kp {kp}: the kernel's gains are not kp x {kp}, kd x {kd}: {gains_err}")
+        check(finite(*m.values()), f"kp {kp}: non-finite eval {m}")
+        check(abs(m["eval_reward"] - want_r) <= SWEEP_REWARD_TOL,
+              f"kp {kp}: eval_reward {m['eval_reward']} not within {SWEEP_REWARD_TOL} of {want_r}")
+        check(abs(m["eval_episode_length"] / want_len - 1) <= SWEEP_LENGTH_TOL,
+              f"kp {kp}: eval_episode_length {m['eval_episode_length']} not within "
+              f"{SWEEP_LENGTH_TOL:.0%} of {want_len}")
+        out.append({"kp": kp, "kd": kd, **m, "launches": launches, "s": wall})
+    log("sweep", "eval_reward by kp_scale: " + ", ".join(
+        f"{r['kp']}: {r['eval_reward']:.5f}" for r in out)
+        + f"; unscaled (phase 6): {unscaled['eval_reward']:.5f}")
+    check(out[-1]["kp"] == 2.0 and out[-1]["eval_reward"] < unscaled["eval_reward"],
+          "kp 2.0 does not evaluate below the unscaled backflip eval")
+    return out
+
+
+def tools_phase(smi, unscaled):
+    """Phase 11: the backflip investigation's tools and campaign 33's sweep
+    (module docstring). Returns the numbers the report line needs."""
+    t_phase = time.time()
+    ceiling = ceiling_check(smi)
+    out = {"ceiling": ceiling["launches"], "lag": lag_check(smi),
+           "diag": diag_check(smi, ceiling["ckpt"]), "sweep": sweep_check(smi, unscaled)}
+    phase_s = time.time() - t_phase
+    log("tools phase", f"{phase_s:.1f}s (budget {PHASE11_BUDGET_S}s) | {smi}")
+    check(phase_s <= PHASE11_BUDGET_S, f"phase 11 took {phase_s:.1f}s > {PHASE11_BUDGET_S}s")
+    return out
+
+
 def fmt(d):
     return " ".join(f"{k}={v:.3e}" if isinstance(v, float) else f"{k}={v}" for k, v in d.items())
 
@@ -2009,7 +2265,7 @@ def main():
     torch.cuda.synchronize()
     ks.launches = 0
     t = time.perf_counter()
-    with watch_endings(env) as rec:
+    with watch_endings(env, keep_at=MID_EVAL_STEP) as rec:
         metrics = evaluate(env, policy, stats, num_envs=EVAL_ENVS, num_steps=EVAL_STEPS,
                            generator=gen)
     metrics = {k: float(v) for k, v in metrics.items()}
@@ -2048,6 +2304,18 @@ def main():
     print("[smoke]   early: " + json.dumps(ended), flush=True)
     check(abs((EVAL_STEPS - lost / EVAL_ENVS) - metrics["eval_episode_length"]) < 1e-3,
           "the recorded endings do not give the eval's mean length")
+    mid = rec.pop("kept_at")
+    del rec
+    mid_ms = time_launch(ks, *mid)
+    mid_need = needed(sp, *mid)
+    mid_bound_ms, mid_bound_by = bound(sp, mid_need["flop_per_env"], EVAL_ENVS)
+    log("mid-eval", f"the eval's states at step {MID_EVAL_STEP}, B={EVAL_ENVS}: kernel "
+        f"{mid_ms:.4f} ms/launch (start states {kernel_ms:.4f}); {mid_need['flop_per_env']:.1f} "
+        f"FLOP/env/step (touching per env and substep: {mid_need['ground']:.3f} ground, "
+        f"{mid_need['self']:.3f} self contacts) -> {mid_bound_ms:.5f} ms ({mid_bound_by}; "
+        f"start states {bound_ms:.5f}) | {smi}")
+    check(mid[0].shape[0] == EVAL_ENVS and bool(mid[0].isfinite().all()),
+          "the mid-eval states are not the eval's batch")
 
     # 5. train
     tr = train_phase(dev, smi, model, clip)
@@ -2067,14 +2335,18 @@ def main():
     # 10. the training API, PPO and APG on the per-env env, the tour
     ap = api_phase(dev, smi, model, clip)
 
-    # 11. report
+    # 11. the backflip investigation's tools, campaign 33's sweep
+    tl = tools_phase(smi, rc["evals"]["backflip"])
+
+    # 12. report
     print(json.dumps({"kernels": [{
         "name": "mimic_step", "route": "cuda",
         "source": "pbrl_tpu_torch/csrc/mimic_step.cu",
         "replaces": "pbrl_tpu/ops/mimic_kernel.py:144",
         "launches": launches, "max_abs_err": max_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None, "train_launches": tr["launches"], "train_ms": tr["kernel_ms"],
+        "library_ms": None, "mid_eval_ms": mid_ms, "mid_eval_bound_ms": mid_bound_ms,
+        "train_launches": tr["launches"], "train_ms": tr["kernel_ms"],
         "train_bound_ms": tr["bound_ms"], "train_max_abs_err": tr["max_abs_err"],
         "recipe_launches": rc["launches"], "self_contact_ms": rc["self_ms"],
         "self_contact_bound_ms": rc["self_bound_ms"],
@@ -2090,6 +2362,9 @@ def main():
         "per_env_launches": ap["per_env"]["launches"] + ap["apg"]["launches"],
         "per_env_rollout_ms": ap["per_env"]["rollout_ms"],
         "quickstart_launches": ap["quickstart_launches"],
+        "tools_launches": {"ceiling": tl["ceiling"], "rollout": tl["lag"]["launches"],
+                           "diag": {c: d["launches"] for c, d in tl["diag"].items()},
+                           "sweep": [r["launches"] for r in tl["sweep"]]},
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -319,23 +319,30 @@ def cmd_eval(args):
     return 0
 
 
-def rollout_trajectory(env, policy, stats, state, steps: int, normalize_obs: bool = True):
+REWARD_TERMS = ("reward_pose", "reward_vel", "reward_ee", "reward_com")
+
+
+def rollout_trajectory(env, policy, stats, state, steps: int, normalize_obs: bool = True) -> dict:
     """``steps`` steps of the policy's mean action from ``state`` (no
-    reset after a done, as pbrl_tpu's rollout): (qpos (steps, nq), reward
-    (steps,), done (steps,)) of env 0, as numpy."""
+    reset after a done, as pbrl_tpu's rollout), env 0's record as numpy:
+    ``qpos`` (steps, nq), ``qvel`` (steps, nv), ``reward``, ``done``,
+    ``time`` and ``root_err`` (steps,), and ``terms`` (steps, 4), the
+    REWARD_TERMS in order. One copy to the host, at the end."""
     import torch
 
     from pbrl_tpu_torch.train.running_stats import normalize
 
-    qpos, reward, done = [], [], []
+    rows = []
     with torch.no_grad():
         for _ in range(steps):
             mean, _ = policy(normalize(stats, state.obs) if normalize_obs else state.obs)
             state = env.step(state, mean)
-            qpos.append(state.qpos[0])
-            reward.append(state.reward[0])
-            done.append(state.done[0])
-    return tuple(torch.stack(x).cpu().numpy() for x in (qpos, reward, done))
+            m = state.metrics
+            rows.append((state.qpos[0], state.qvel[0], state.reward[0], state.done[0],
+                         state.time[0], m["root_err"][0],
+                         torch.stack([m[k][0] for k in REWARD_TERMS])))
+    keys = ("qpos", "qvel", "reward", "done", "time", "root_err", "terms")
+    return {k: torch.stack(x).cpu().numpy() for k, x in zip(keys, zip(*rows))}
 
 
 def cmd_rollout(args):
@@ -347,8 +354,8 @@ def cmd_rollout(args):
     _require_device(args.device)
     policy, stats, run, env = _policy_env(args)
     state = env.reset(1, torch.Generator(device=args.device).manual_seed(args.seed))
-    qpos, reward, done = rollout_trajectory(env, policy, stats, state, args.steps,
-                                            _normalize_obs(run))
+    r = rollout_trajectory(env, policy, stats, state, args.steps, _normalize_obs(run))
+    qpos, reward, done = r["qpos"], r["reward"], r["done"]
     fps = 1.0 / env.config.effective_policy_dt
     dump_trajectory(args.out, qpos, fps, metrics={"reward": reward, "done": done})
     alive = int(np.argmax(done > 0)) or args.steps

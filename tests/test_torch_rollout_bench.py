@@ -82,7 +82,8 @@ def test_rollout_matches_pbrl_tpu():
     state = env.reset(1, t0=torch.from_numpy(np.array(js0.time)))
     state = state.replace(qpos=torch.from_numpy(np.array(js0.qpos)),
                           qvel=torch.from_numpy(np.array(js0.qvel)))
-    qpos, reward, done = cli.rollout_trajectory(env, policy, stats, state, steps)
+    r = cli.rollout_trajectory(env, policy, stats, state, steps)
+    qpos, reward, done = r["qpos"], r["reward"], r["done"]
     assert qpos.shape == (steps, 35) and reward.shape == done.shape == (steps,)
     np.testing.assert_allclose(qpos, np.stack([w[0] for w in want]), atol=1e-4)
     np.testing.assert_allclose(reward, [w[1] for w in want], atol=1e-3)

@@ -48,6 +48,7 @@ from pbrl_tpu_torch.mocap.clip import (MotionClip, phase, reference_aux,
 from pbrl_tpu_torch.model.spec import Model
 from pbrl_tpu_torch.ops.mimic_kernel import build_mimic_step
 from pbrl_tpu_torch.parallel.mesh import SINGLE, Mesh
+from pbrl_tpu_torch.utils.profiling import count, trace_annotation
 
 BACKENDS = ("auto", "kernel", "xla")
 
@@ -357,41 +358,58 @@ class MimicVecEnv:
                         metrics=metrics)
 
     def step(self, state: VecState, action: torch.Tensor) -> VecState:
+        """One policy step of the batch. Spans: ``vec/step`` around it;
+        ``vec/targets``, ``vec/physics`` (the kernel's launch, or the
+        engine), ``vec/obs``, ``vec/reward``, and ``vec/termination``
+        twice (the NaN quarantine before the obs, ``done`` after the
+        reward). Counter: ``vec/quarantined``, the envs the quarantine
+        catches."""
+        with trace_annotation("vec/step"):
+            return self._step(state, action)
+
+    def _step(self, state: VecState, action: torch.Tensor) -> VecState:
         c = self.config
-        if c.action_mode == "torque":
-            u = action if self._mask is None else action * self._mask[None]
-        else:
-            u = self._target(state.qpos, state.time, action)
-        qpos, qvel, xpos, xquat, fall = self._physics(state.qpos, state.qvel, u)
+        with trace_annotation("vec/targets"):
+            if c.action_mode == "torque":
+                u = action if self._mask is None else action * self._mask[None]
+            else:
+                u = self._target(state.qpos, state.time, action)
+        with trace_annotation("vec/physics"):
+            qpos, qvel, xpos, xquat, fall = self._physics(state.qpos, state.qvel, u)
         t = state.time + c.n_substeps * c.physics_dt
 
-        # NaN quarantine: a numerically poisoned env is terminated and
-        # sanitised so NaNs never reach the learner or the obs statistics.
-        bad = ~(torch.isfinite(qpos).all(dim=1) & torch.isfinite(qvel).all(dim=1))
-        qpos = torch.where(bad[:, None], torch.nan_to_num(qpos), qpos)
-        qvel = torch.where(bad[:, None], torch.nan_to_num(qvel), qvel)
-        xpos = torch.nan_to_num(xpos)
-        xquat = torch.where(torch.isfinite(xquat), xquat, 1.0)
-        fall = torch.maximum(fall, bad.to(fall.dtype))
+        with trace_annotation("vec/termination"):
+            # NaN quarantine: a numerically poisoned env is terminated and
+            # sanitised so NaNs never reach the learner or the obs statistics.
+            bad = ~(torch.isfinite(qpos).all(dim=1) & torch.isfinite(qvel).all(dim=1))
+            count("vec/quarantined", bad)
+            qpos = torch.where(bad[:, None], torch.nan_to_num(qpos), qpos)
+            qvel = torch.where(bad[:, None], torch.nan_to_num(qvel), qvel)
+            xpos = torch.nan_to_num(xpos)
+            xquat = torch.where(torch.isfinite(xquat), xquat, 1.0)
+            fall = torch.maximum(fall, bad.to(fall.dtype))
 
-        obs = self._obs(qpos, qvel, t, xpos, xquat)
-        reward, terms = self._reward_batch(qpos, qvel, t, xpos, xquat, fall)
-        reward = torch.where(bad, 0.0, torch.nan_to_num(reward))
-        done = torch.zeros_like(fall)
-        if c.early_termination:
-            done = torch.maximum(done, fall)
-        if c.pose_termination > 0:
-            thr = torch.full_like(t, c.pose_termination)
-            if c.pose_termination_after_cycle > 0:
-                survived = t - state.episode_start >= self.clip.cycle_time
-                thr = torch.where(survived, c.pose_termination_after_cycle, thr)
-            off_pose = terms["root_err"] > thr
-            reward = torch.where(off_pose, 0.0, reward)
-            done = torch.maximum(done, off_pose.to(done.dtype))
-        done = torch.maximum(
-            done, (t - state.episode_start >= c.max_episode_time).to(done.dtype))
-        if not self.clip.loop:
-            done = torch.maximum(done, (t >= self.clip.cycle_time).to(done.dtype))
+        with trace_annotation("vec/obs"):
+            obs = self._obs(qpos, qvel, t, xpos, xquat)
+        with trace_annotation("vec/reward"):
+            reward, terms = self._reward_batch(qpos, qvel, t, xpos, xquat, fall)
+            reward = torch.where(bad, 0.0, torch.nan_to_num(reward))
+        with trace_annotation("vec/termination"):
+            done = torch.zeros_like(fall)
+            if c.early_termination:
+                done = torch.maximum(done, fall)
+            if c.pose_termination > 0:
+                thr = torch.full_like(t, c.pose_termination)
+                if c.pose_termination_after_cycle > 0:
+                    survived = t - state.episode_start >= self.clip.cycle_time
+                    thr = torch.where(survived, c.pose_termination_after_cycle, thr)
+                off_pose = terms["root_err"] > thr
+                reward = torch.where(off_pose, 0.0, reward)
+                done = torch.maximum(done, off_pose.to(done.dtype))
+            done = torch.maximum(
+                done, (t - state.episode_start >= c.max_episode_time).to(done.dtype))
+            if not self.clip.loop:
+                done = torch.maximum(done, (t >= self.clip.cycle_time).to(done.dtype))
         metrics = {
             "step_index": reference_frame_index(self.clip, t).to(torch.float32),
             "fall": fall,
@@ -410,54 +428,70 @@ class MimicVecEnv:
         probability p from the state of a peer drawn uniformly among the
         alive envs of the whole batch (in ``curriculum_phase_window``, when
         set); ``u`` and ``peer`` (both of the whole batch's size) replace
-        those draws of ``generator`` when given."""
+        those draws of ``generator`` when given. Spans: ``vec/auto_reset``
+        around it; ``vec/reset`` (the fresh draw) and ``vec/curriculum``.
+        Counters: ``vec/resets`` (the envs restarted), ``vec/fresh_states``
+        (the fresh states made, however few envs are done) and
+        ``vec/curriculum_restarts`` (the envs restarted from a peer)."""
+        with trace_annotation("vec/auto_reset"):
+            B = state.done.shape[0] * self.mesh.world  # the whole batch
+            with trace_annotation("vec/reset"):
+                fresh = self.reset(B, generator, t0=t0)
+            count("vec/fresh_states", state.done.shape[0])
+            if self.config.curriculum_reset_prob > 0:
+                with trace_annotation("vec/curriculum"):
+                    fresh = self._curriculum(state, fresh, generator, u, peer)
+            d = state.done.to(torch.bool)
+            count("vec/resets", state.done)
+
+            def sel(a, b):
+                return torch.where(d.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+            return state.replace(
+                qpos=sel(fresh.qpos, state.qpos), qvel=sel(fresh.qvel, state.qvel),
+                time=sel(fresh.time, state.time),
+                episode_start=sel(fresh.episode_start, state.episode_start),
+                obs=sel(fresh.obs, state.obs))
+
+    def _curriculum(self, state: VecState, fresh: VecState, generator, u, peer) -> VecState:
+        """``fresh`` with each env that restarts from a peer given the
+        peer's state (:meth:`auto_reset`'s curriculum)."""
         c = self.config
         mesh = self.mesh
-        B = state.done.shape[0] * mesh.world  # the whole batch
-        fresh = self.reset(B, generator, t0=t0)
-        if c.curriculum_reset_prob > 0:
-            dev = self.device
-            gdev = generator.device if generator is not None else dev
-            ok = state.done == 0
-            if c.curriculum_phase_window:
-                lo, hi = c.curriculum_phase_window
-                ph = phase(self.clip, state.time)
-                ok = ok & (ph >= lo) & (ph <= hi)
-            # the candidate peers' states, from every rank
-            nq, nv = state.qpos.shape[1], state.qvel.shape[1]
-            whole = mesh.gather_rows(torch.cat([state.qpos, state.qvel, state.time[:, None],
-                                                ok[:, None].to(state.qpos.dtype)], dim=1))
-            all_q, all_v = whole[:, :nq], whole[:, nq:nq + nv]
-            all_t, all_ok = whole[:, nq + nv], whole[:, nq + nv + 1] > 0
-            if u is None:
-                u = torch.rand(B, generator=generator, device=gdev).to(dev)
-            if peer is None:
-                # Uniform over the eligible envs by inverse CDF, over all envs
-                # when none is (ok[peer] then refuses the draw); no host sync.
-                w = torch.where(all_ok.any(), all_ok.to(torch.float32), 1.0)
-                cdf = torch.cumsum(w, 0)
-                r = torch.rand(B, generator=generator, device=gdev).to(dev) * cdf[-1]
-                peer = torch.searchsorted(cdf, r, right=True).clamp_(max=B - 1)
-            u, peer = mesh.rows(u), mesh.rows(peer)
-            use = (u < c.curriculum_reset_prob) & all_ok[peer]
-            peer_qpos = all_q[peer]
-            if c.curriculum_recenter_xy:
-                ref_q, _ = reference_state(self.clip, all_t[peer])
-                peer_qpos = torch.cat([ref_q[:, :2], peer_qpos[:, 2:]], dim=1)
-            qpos0 = torch.where(use[:, None], peer_qpos, fresh.qpos)
-            qvel0 = torch.where(use[:, None], all_v[peer], fresh.qvel)
-            t_peer = all_t[peer]
-            t0 = torch.where(use, t_peer, fresh.time)
-            fresh = fresh.replace(qpos=qpos0, qvel=qvel0, time=t0,
-                                  episode_start=torch.where(use, t_peer, fresh.episode_start),
-                                  obs=self._obs(qpos0, qvel0, t0))
-        d = state.done.to(torch.bool)
-
-        def sel(a, b):
-            return torch.where(d.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
-
-        return state.replace(
-            qpos=sel(fresh.qpos, state.qpos), qvel=sel(fresh.qvel, state.qvel),
-            time=sel(fresh.time, state.time),
-            episode_start=sel(fresh.episode_start, state.episode_start),
-            obs=sel(fresh.obs, state.obs))
+        B = state.done.shape[0] * mesh.world
+        dev = self.device
+        gdev = generator.device if generator is not None else dev
+        ok = state.done == 0
+        if c.curriculum_phase_window:
+            lo, hi = c.curriculum_phase_window
+            ph = phase(self.clip, state.time)
+            ok = ok & (ph >= lo) & (ph <= hi)
+        # the candidate peers' states, from every rank
+        nq, nv = state.qpos.shape[1], state.qvel.shape[1]
+        whole = mesh.gather_rows(torch.cat([state.qpos, state.qvel, state.time[:, None],
+                                            ok[:, None].to(state.qpos.dtype)], dim=1))
+        all_q, all_v = whole[:, :nq], whole[:, nq:nq + nv]
+        all_t, all_ok = whole[:, nq + nv], whole[:, nq + nv + 1] > 0
+        if u is None:
+            u = torch.rand(B, generator=generator, device=gdev).to(dev)
+        if peer is None:
+            # Uniform over the eligible envs by inverse CDF, over all envs
+            # when none is (ok[peer] then refuses the draw); no host sync.
+            w = torch.where(all_ok.any(), all_ok.to(torch.float32), 1.0)
+            cdf = torch.cumsum(w, 0)
+            r = torch.rand(B, generator=generator, device=gdev).to(dev) * cdf[-1]
+            peer = torch.searchsorted(cdf, r, right=True).clamp_(max=B - 1)
+        u, peer = mesh.rows(u), mesh.rows(peer)
+        use = (u < c.curriculum_reset_prob) & all_ok[peer]
+        count("vec/curriculum_restarts", use, where=state.done)
+        peer_qpos = all_q[peer]
+        if c.curriculum_recenter_xy:
+            ref_q, _ = reference_state(self.clip, all_t[peer])
+            peer_qpos = torch.cat([ref_q[:, :2], peer_qpos[:, 2:]], dim=1)
+        qpos0 = torch.where(use[:, None], peer_qpos, fresh.qpos)
+        qvel0 = torch.where(use[:, None], all_v[peer], fresh.qvel)
+        t_peer = all_t[peer]
+        t0 = torch.where(use, t_peer, fresh.time)
+        return fresh.replace(qpos=qpos0, qvel=qvel0, time=t0,
+                             episode_start=torch.where(use, t_peer, fresh.episode_start),
+                             obs=self._obs(qpos0, qvel0, t0))

@@ -30,6 +30,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from pbrl_tpu_torch.utils.profiling import trace_annotation
+
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
 
@@ -52,10 +54,15 @@ class Adam:
         lo = self.learning_rate * 0.01
         return float(np.float32(self.learning_rate - lo) * frac + np.float32(lo))
 
-    @torch.no_grad()
     def step(self, params: Dict[str, torch.Tensor]) -> torch.Tensor:
         """One update of ``params`` (name -> leaf tensor) from their
-        ``.grad``; returns the global norm of the raw gradients."""
+        ``.grad``; returns the global norm of the raw gradients. Span:
+        ``optim/step``."""
+        with trace_annotation("optim/step"):
+            return self._step(params)
+
+    @torch.no_grad()
+    def _step(self, params: Dict[str, torch.Tensor]) -> torch.Tensor:
         grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for k, p in params.items()}
         if not self.mu:

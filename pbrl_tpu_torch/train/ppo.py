@@ -56,6 +56,7 @@ from pbrl_tpu_torch.envs.base import where_states
 from pbrl_tpu_torch.parallel.mesh import SINGLE, Mesh, mesh_of
 from pbrl_tpu_torch.train import checkpoint as ckpt
 from pbrl_tpu_torch.train import networks, optim, running_stats
+from pbrl_tpu_torch.utils.profiling import trace_annotation
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,29 +179,32 @@ def rollout(env, config: TrainConfig, ts: TrainState, noise: Optional[torch.Tens
     ``noise`` (T, num_envs, nu), when given, is the standard-normal action
     draw of the whole batch, as the generator's draw otherwise is; this
     rank's rows of it move its envs. Returns (final env state, Transition of
-    (T, B, ...) tensors of this rank's B envs)."""
-    state = ts.env_state
-    mesh = ts.mesh
-    vectorized = getattr(env, "is_vectorized", False)
-    steps = []
-    for t in range(config.unroll_length):
-        obs_n = _norm_obs(config, ts.obs_stats, state.obs)
-        mean, log_std = ts.policy(obs_n)
-        eps = noise[t] if noise is not None else torch.randn(
-            (config.num_envs, mean.shape[1]), generator=ts.generator, device=mean.device)
-        action = networks.sample_action(mean, log_std, noise=mesh.rows(eps))
-        lp = networks.log_prob(mean, log_std, action)
-        val = ts.value(obs_n)
-        nstate = env.step(state, action)
-        steps.append(Transition(obs=state.obs, action=action, log_prob=lp,
-                                reward=nstate.reward * config.reward_scale,
-                                done=nstate.done, value=val))
-        if vectorized:
-            state = env.auto_reset(nstate, ts.generator)
-        else:
-            state = reset_done(nstate, env.reset(config.num_envs, ts.generator))
-    traj = Transition(**{f.name: torch.stack([getattr(s, f.name) for s in steps])
-                         for f in dataclasses.fields(Transition)})
+    (T, B, ...) tensors of this rank's B envs). Spans: ``ppo/rollout``
+    around it, ``ppo/policy`` around each step's policy and value."""
+    with trace_annotation("ppo/rollout"):
+        state = ts.env_state
+        mesh = ts.mesh
+        vectorized = getattr(env, "is_vectorized", False)
+        steps = []
+        for t in range(config.unroll_length):
+            with trace_annotation("ppo/policy"):
+                obs_n = _norm_obs(config, ts.obs_stats, state.obs)
+                mean, log_std = ts.policy(obs_n)
+                eps = noise[t] if noise is not None else torch.randn(
+                    (config.num_envs, mean.shape[1]), generator=ts.generator, device=mean.device)
+                action = networks.sample_action(mean, log_std, noise=mesh.rows(eps))
+                lp = networks.log_prob(mean, log_std, action)
+                val = ts.value(obs_n)
+            nstate = env.step(state, action)
+            steps.append(Transition(obs=state.obs, action=action, log_prob=lp,
+                                    reward=nstate.reward * config.reward_scale,
+                                    done=nstate.done, value=val))
+            if vectorized:
+                state = env.auto_reset(nstate, ts.generator)
+            else:
+                state = reset_done(nstate, env.reset(config.num_envs, ts.generator))
+        traj = Transition(**{f.name: torch.stack([getattr(s, f.name) for s in steps])
+                             for f in dataclasses.fields(Transition)})
     return state, traj
 
 
@@ -298,14 +302,23 @@ def learn(config: TrainConfig, ts: TrainState, env_state, traj: Transition,
     ``update_epochs`` passes over ``num_minibatches`` minibatches of a
     fresh permutation each of the whole batch's samples (``perms``
     (epochs, T*num_envs) when given). Updates ``ts`` in place and returns
-    the iteration's metrics as 0-d tensors."""
+    the iteration's metrics as 0-d tensors. Spans: ``ppo/learn`` around
+    it; ``ppo/gae`` (obs statistics, bootstrap, GAE) and, per minibatch,
+    ``ppo/minibatch`` with ``ppo/loss``, ``ppo/backward`` and the
+    optimiser's ``optim/step`` inside."""
+    with trace_annotation("ppo/learn"):
+        return _learn(config, ts, env_state, traj, perms)
+
+
+def _learn(config: TrainConfig, ts: TrainState, env_state, traj: Transition, perms):
     mesh = ts.mesh
-    obs_stats = (running_stats.update(ts.obs_stats, traj.obs, mesh.group)
-                 if config.normalize_obs else ts.obs_stats)
-    with torch.no_grad():
-        bootstrap = ts.value(_norm_obs(config, obs_stats, env_state.obs))
-    adv, ret = compute_gae(traj.reward, traj.done, traj.value, bootstrap,
-                           config.gamma, config.gae_lambda)
+    with trace_annotation("ppo/gae"):
+        obs_stats = (running_stats.update(ts.obs_stats, traj.obs, mesh.group)
+                     if config.normalize_obs else ts.obs_stats)
+        with torch.no_grad():
+            bootstrap = ts.value(_norm_obs(config, obs_stats, env_state.obs))
+        adv, ret = compute_gae(traj.reward, traj.done, traj.value, bootstrap,
+                               config.gamma, config.gae_lambda)
 
     flat = Transition(**{f.name: getattr(traj, f.name).flatten(0, 1)
                          for f in dataclasses.fields(Transition)})
@@ -321,25 +334,28 @@ def learn(config: TrainConfig, ts: TrainState, env_state, traj: Transition,
     params = ts.params()
     auxes = []
     for j in range(perms.shape[0]):
-        idx = perms[j] if mesh.world == 1 else entries[j]
-        batch = Transition(**{f.name: getattr(flat, f.name)[idx]
-                              for f in dataclasses.fields(Transition)})
-        for p in params.values():
-            p.grad = None
-        if mesh.world == 1:
-            total, aux = loss_fn(ts.policy, ts.value, config, batch, adv_f[idx],
-                                 ret_f[idx], obs_stats)
-            total.backward()
-        else:
-            total, shares, ent = shard_loss_fn(
-                ts.policy, ts.value, config, batch, adv_f[idx], ret_f[idx], obs_stats,
-                adv_mean[j], adv_std[j], mb, with_entropy=mesh.rank == 0)
-            total.backward()
-            shares = _all_reduce_grads(mesh, params, shares)
-            aux = {"loss_policy": shares[0], "loss_value": shares[1], "entropy": ent,
-                   "kl_approx": shares[2]}
-        ts.opt.step(params)
-        auxes.append(aux)
+        with trace_annotation("ppo/minibatch"):
+            idx = perms[j] if mesh.world == 1 else entries[j]
+            batch = Transition(**{f.name: getattr(flat, f.name)[idx]
+                                  for f in dataclasses.fields(Transition)})
+            for p in params.values():
+                p.grad = None
+            with trace_annotation("ppo/loss"):
+                if mesh.world == 1:
+                    total, aux = loss_fn(ts.policy, ts.value, config, batch, adv_f[idx],
+                                         ret_f[idx], obs_stats)
+                else:
+                    total, shares, ent = shard_loss_fn(
+                        ts.policy, ts.value, config, batch, adv_f[idx], ret_f[idx], obs_stats,
+                        adv_mean[j], adv_std[j], mb, with_entropy=mesh.rank == 0)
+            with trace_annotation("ppo/backward"):
+                total.backward()
+            if mesh.world > 1:
+                shares = _all_reduce_grads(mesh, params, shares)
+                aux = {"loss_policy": shares[0], "loss_value": shares[1], "entropy": ent,
+                       "kl_approx": shares[2]}
+            ts.opt.step(params)
+            auxes.append(aux)
 
     means = _batch_means(mesh, {"reward_mean": traj.reward, "episode_done_frac": traj.done,
                                 **env_state.metrics})
@@ -391,6 +407,26 @@ def _synchronize(device: torch.device):
         torch.cuda.synchronize(device)
 
 
+class _Clock:
+    """Marks in an iteration: CUDA events on the card (recorded without a
+    wait, read after the iteration's metrics reach the host, which waits
+    for them), the host clock elsewhere."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        _synchronize(device)
+
+    def mark(self):
+        if not self.cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def seconds(self, a, b) -> float:
+        return a.elapsed_time(b) / 1e3 if self.cuda else b - a
+
+
 def train(env, config: TrainConfig = TrainConfig(), progress_fn: Optional[Callable] = None,
           checkpoint_dir: Optional[str] = None, checkpoint_every: int = 50,
           device="cuda"):
@@ -403,7 +439,10 @@ def train(env, config: TrainConfig = TrainConfig(), progress_fn: Optional[Callab
     end. Each history entry (also passed to ``progress_fn(iteration,
     entry)``) holds the iteration's metrics, this run's ``env_steps``,
     ``sps`` (env steps per second since the start, learner included) and
-    the iteration's ``rollout_s`` and ``learn_s``.
+    the iteration's ``rollout_s`` and ``learn_s``: on the card, device-
+    timeline seconds between CUDA events recorded at the iteration's start,
+    after the rollout and after learn (nothing waits between the two); on
+    the CPU, the host clock.
 
     Data-parallel (the env's mesh has several ranks): every rank runs this
     and holds the same history, whose times are the slowest rank's; only
@@ -429,17 +468,16 @@ def train(env, config: TrainConfig = TrainConfig(), progress_fn: Optional[Callab
 
     history = []
     saved = None
-    _synchronize(device)
+    clock = _Clock(device)
     t0 = time.perf_counter()
     for it in range(config.num_iterations):
-        ta = time.perf_counter()
+        ta = clock.mark()
         env_state, traj = rollout(env, config, ts)
-        _synchronize(device)
-        tb = time.perf_counter()
+        tb = clock.mark()
         metrics = learn(config, ts, env_state, traj)
+        tc = clock.mark()
         values = torch.stack(list(metrics.values())).tolist()  # one copy to the host
-        tc = time.perf_counter()
-        seconds = [tb - ta, tc - tb, tc - t0]
+        seconds = [clock.seconds(ta, tb), clock.seconds(tb, tc), time.perf_counter() - t0]
         if ts.mesh.world > 1:  # the slowest rank's
             seconds = ts.mesh.all_reduce(torch.tensor(seconds, dtype=torch.float64,
                                                       device=device), dist.ReduceOp.MAX).tolist()
@@ -482,14 +520,17 @@ def evaluate(env, policy, obs_stats, num_envs: int = 128, num_steps: int = 256,
              generator: Optional[torch.Generator] = None,
              t0: Optional[torch.Tensor] = None, normalize_obs: bool = True):
     """Deterministic-policy rollout (mean action, no auto-reset); returns
-    mean live reward, mean episode length and mean live pose error."""
-    state = env.reset(num_envs, generator, t0=t0)
-    rews, dones, perrs = [], [], []
-    for _ in range(num_steps):
-        obs = running_stats.normalize(obs_stats, state.obs) if normalize_obs else state.obs
-        mean, _ = policy(obs)
-        state = env.step(state, mean)
-        rews.append(state.reward)
-        dones.append(state.done)
-        perrs.append(state.metrics.get("pose_error", torch.zeros_like(state.reward)))
-    return alive_masked_metrics(torch.stack(rews), torch.stack(dones), torch.stack(perrs))
+    mean live reward, mean episode length and mean live pose error. Spans:
+    ``ppo/evaluate`` around it, ``ppo/policy`` around each step's policy."""
+    with trace_annotation("ppo/evaluate"):
+        state = env.reset(num_envs, generator, t0=t0)
+        rews, dones, perrs = [], [], []
+        for _ in range(num_steps):
+            with trace_annotation("ppo/policy"):
+                obs = running_stats.normalize(obs_stats, state.obs) if normalize_obs else state.obs
+                mean, _ = policy(obs)
+            state = env.step(state, mean)
+            rews.append(state.reward)
+            dones.append(state.done)
+            perrs.append(state.metrics.get("pose_error", torch.zeros_like(state.reward)))
+        return alive_masked_metrics(torch.stack(rews), torch.stack(dones), torch.stack(perrs))

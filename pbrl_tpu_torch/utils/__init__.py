@@ -1,6 +1,12 @@
-"""Utilities: profiling scopes, numerical guards, config IO."""
+"""Utilities: spans, counters and profiling scopes, numerical guards, config IO."""
 
-from pbrl_tpu_torch.utils.profiling import profile_scope, profile_to, trace_annotation  # noqa: F401
+from pbrl_tpu_torch.utils.profiling import (  # noqa: F401
+    count,
+    counters,
+    profile_scope,
+    profile_to,
+    trace_annotation,
+)
 from pbrl_tpu_torch.utils.guards import (  # noqa: F401
     assert_finite,
     check_finite_tree,

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from pbrl_tpu_torch.engine import collision
-from pbrl_tpu_torch.engine.data import Data, make_data
+from pbrl_tpu_torch.engine.data import Data, make_data, model_cache
 from pbrl_tpu_torch.engine.kinematics import kinematics
 from pbrl_tpu_torch.maths import quaternion as quat
 from pbrl_tpu_torch.maths.numeric import safe_norm
@@ -44,6 +44,31 @@ def joint_slices(model: Model) -> Tuple[Tuple[int, int], ...]:
     return tuple(out)
 
 
+def _tables(model: Model, device, dtype):
+    """The reward's constant tensors on ``device``, built once per model,
+    device and dtype (:func:`~pbrl_tpu_torch.engine.data.model_cache`), so a
+    step copies nothing from the host: the ball joints' (8, 3) and the hinge
+    joints' (4,) qpos columns, the permutation from [ball, hinge] back to
+    model order, the end-effector body ids and offsets, and the bodies'
+    inertial offsets, masses and total mass."""
+    def build():
+        slices = joint_slices(model)
+        ball = [j for j, (_, dof) in enumerate(slices) if dof == 3]
+        hinge = [j for j, (_, dof) in enumerate(slices) if dof == 1]
+        idx = lambda x: torch.tensor(x, dtype=torch.long, device=device)
+        val = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+        mass = val(model.body_mass)
+        return {
+            "ball": idx([[slices[j][0] + k for k in range(3)] for j in ball]),
+            "hinge": idx([slices[j][0] for j in hinge]),
+            "order": idx(np.argsort(ball + hinge)),
+            "ee_bids": idx([model.body_id(n) for n, _ in EE_SPECS]),
+            "ee_offsets": val([o for _, o in EE_SPECS]),
+            "body_ipos": val(model.body_ipos), "body_mass": mass, "mass_total": torch.sum(mass),
+        }
+    return model_cache(model, device, f"humanoid_task/{dtype}", build)
+
+
 def ee_positions(model: Model, data_or_xpos, xquat: torch.Tensor = None) -> torch.Tensor:
     """(..., n_ee, 3) world end-effector points, from engine ``Data`` or from
     body frames ``xpos`` (..., nb, 3) and ``xquat`` (..., nb, 4)."""
@@ -51,9 +76,9 @@ def ee_positions(model: Model, data_or_xpos, xquat: torch.Tensor = None) -> torc
         xpos, xquat = data_or_xpos.xpos, data_or_xpos.xquat
     else:
         xpos = data_or_xpos
-    bids = [model.body_id(n) for n, _ in EE_SPECS]
-    offsets = xpos.new_tensor([o for _, o in EE_SPECS])
-    return xpos[..., bids, :] + quat.rotate(xquat[..., bids, :], offsets)
+    t = _tables(model, xpos.device, xpos.dtype)
+    bids = t["ee_bids"]
+    return xpos[..., bids, :] + quat.rotate(xquat[..., bids, :], t["ee_offsets"])
 
 
 def center_of_mass(model: Model, data_or_xpos, xquat: torch.Tensor = None) -> torch.Tensor:
@@ -61,24 +86,27 @@ def center_of_mass(model: Model, data_or_xpos, xquat: torch.Tensor = None) -> to
     centres ``xipos``) or from body frames."""
     if isinstance(data_or_xpos, Data):
         xipos = data_or_xpos.xipos
+        t = _tables(model, xipos.device, xipos.dtype)
     else:
-        xipos = data_or_xpos + quat.rotate(xquat, data_or_xpos.new_tensor(model.body_ipos))
-    mass = xipos.new_tensor(model.body_mass)
-    return torch.einsum("b,...bx->...x", mass, xipos) / torch.sum(mass)
+        t = _tables(model, data_or_xpos.device, data_or_xpos.dtype)
+        xipos = data_or_xpos + quat.rotate(xquat, t["body_ipos"])
+    return torch.einsum("b,...bx->...x", t["body_mass"], xipos) / t["mass_total"]
 
 
 def joint_pose_errors(model: Model, qpos: torch.Tensor, qpos_ref: torch.Tensor) -> torch.Tensor:
-    """(B, 12) per-joint geodesic rotation error in radians: hinge triples
-    composed to quaternions, so a 3-dof joint's error is one angle."""
-    errs = []
-    for qadr, dof in joint_slices(model):
-        if dof == 1:
-            errs.append(torch.abs(qpos[..., qadr] - qpos_ref[..., qadr]))
-        else:
-            q1 = quat.from_euler_rxyz(qpos[..., qadr:qadr + 3])
-            q2 = quat.from_euler_rxyz(qpos_ref[..., qadr:qadr + 3])
-            errs.append(quat.angle_between(q1, q2))
-    return torch.stack(errs, dim=-1)
+    """(..., 12) per-joint geodesic rotation error in radians, in model
+    order: each ball joint's hinge triple composed to a quaternion, so its
+    error is one angle, and each hinge joint's absolute angle difference.
+    The 8 ball joints go through one batched pass over a (..., 8, 3) block;
+    every op is elementwise or reduces within one joint, so each column is
+    bitwise what a loop over the joints gives."""
+    t = _tables(model, qpos.device, qpos.dtype)
+    ball, hinge = t["ball"], t["hinge"]
+    q1 = quat.from_euler_rxyz(qpos[..., ball])
+    q2 = quat.from_euler_rxyz(qpos_ref[..., ball])
+    errs = torch.cat([quat.angle_between(q1, q2),
+                      torch.abs(qpos[..., hinge] - qpos_ref[..., hinge])], dim=-1)
+    return errs[..., t["order"]]
 
 
 def root_pose_error(qpos: torch.Tensor, qpos_ref: torch.Tensor):

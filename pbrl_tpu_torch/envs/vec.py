@@ -123,7 +123,6 @@ class MimicVecEnv:
         rng = model.jnt_range[list(model.actuator_jntid())]  # (nu, 2) actuator order
         self._act_lo = torch.as_tensor(rng[:, 0], device=dev)
         self._act_hi = torch.as_tensor(rng[:, 1], device=dev)
-        self._joint_slices = task.joint_slices(model)
 
     # ------------------------------------------------------------------
     @property
@@ -187,15 +186,7 @@ class MimicVecEnv:
         q_ref, v_ref = reference_state(self.clip, t)
         ee_ref, com_ref = reference_aux(self.clip, t)
 
-        errs = []
-        for qadr, dof in self._joint_slices:
-            if dof == 1:
-                errs.append(torch.abs(qpos[:, qadr] - q_ref[:, qadr]))
-            else:
-                q1 = quat.from_euler_rxyz(qpos[:, qadr:qadr + 3])
-                q2 = quat.from_euler_rxyz(q_ref[:, qadr:qadr + 3])
-                errs.append(quat.angle_between(q1, q2))
-        joint_err = torch.stack(errs, dim=1)  # (B, 12)
+        joint_err = task.joint_pose_errors(self.model, qpos, q_ref)  # (B, 12)
         root_rot = quat.angle_between(quat.normalize(qpos[:, 3:7]),
                                       quat.normalize(q_ref[:, 3:7]))
         pose_sq = torch.sum(joint_err ** 2, dim=1) + root_rot ** 2

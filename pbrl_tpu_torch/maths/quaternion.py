@@ -48,21 +48,27 @@ def mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     )
 
 
+def _mul_tables(q: torch.Tensor):
+    """(index, sign) of the Hamilton product on ``q``'s device and dtype,
+    built once, so no call copies a table from the host."""
+    key = (q.device, q.dtype)
+    if key not in _MUL_TABLES:
+        _MUL_TABLES[key] = (torch.tensor(_MUL_IDX, device=q.device).reshape(-1),
+                            torch.tensor(_MUL_SIGN, device=q.device, dtype=q.dtype))
+    return _MUL_TABLES[key]
+
+
 def mul_fused(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     """:func:`mul` in four tensor operations (the same products, summed in
     another order): what the engine's inner loops use, where the number of
     launches sets the time."""
-    key = (q1.device, q1.dtype)
-    if key not in _MUL_TABLES:
-        _MUL_TABLES[key] = (torch.tensor(_MUL_IDX, device=q1.device).reshape(-1),
-                            torch.tensor(_MUL_SIGN, device=q1.device, dtype=q1.dtype))
-    idx, sign = _MUL_TABLES[key]
+    idx, sign = _mul_tables(q1)
     left = q1[..., idx].unflatten(-1, (4, 4)) * sign
     return torch.sum(left * q2[..., None, :], dim=-1)
 
 
 def conj(q: torch.Tensor) -> torch.Tensor:
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    return q * _mul_tables(q)[1][0]  # the product's first sign row: (1, -1, -1, -1)
 
 
 def inv(q: torch.Tensor) -> torch.Tensor:

@@ -2,6 +2,13 @@
 set the upper ends of the training cells' limits, and the test that sees
 ``correct`` come out false, use them. Each ``plant`` returns its undo.
 
+Each mode owns its faults: ``benchmark/modes/<mode>.py`` names those its
+program can have in ``FAULTS`` and plants them with ``plant(name, prog)``;
+an optional ``applies(name, cell, conf)`` there narrows them to the cells
+whose configuration has what a fault breaks. :func:`plant` and
+:func:`applies` dispatch to the cell's mode. The faults of the train and
+eval modes:
+
 * ``unchanged``: a step that returns its state unchanged. In training the
   learner's step leaves every parameter as it was; in eval the policy step
   returns its input state.
@@ -20,20 +27,31 @@ The exchange between chips does not exist in a one-chip cell.
 
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
+from benchmark.run import mode_of
+
+# The faults of the train and eval modes (``calibrate.py --faults`` names them).
 FAULTS = ("unchanged", "half_batch", "altered", "no_reset", "no_curriculum")
 
 
 def applies(name: str, cell: dict, conf: dict) -> bool:
-    """Whether a cell can have the fault."""
-    if name == "no_reset":
-        return cell["mode"] == "train"
-    if name == "no_curriculum":
-        return cell["mode"] == "train" and conf["env_config"]["curriculum_reset_prob"] > 0
-    return name in FAULTS
+    """Whether a cell can have the fault: one of its mode's, and, where the
+    mode narrows them, one its configuration allows."""
+    mode = mode_of(cell)
+    if name not in mode.FAULTS:
+        return False
+    narrow = getattr(mode, "applies", None)
+    return narrow is None or narrow(name, cell, conf)
+
+
+def plant(name: str, prog):
+    """Plant a fault of the program's mode; returns its undo."""
+    mode = mode_of(prog.cell)
+    if name not in mode.FAULTS:
+        raise ValueError(f"{name!r} is not a fault of mode {prog.cell['mode']!r}; "
+                         f"its faults: {mode.FAULTS}")
+    return mode.plant(name, prog)
 
 
 class _Wrapped:
@@ -51,6 +69,7 @@ class _Wrapped:
 
 
 def _wrap_kernel(prog, fn):
+    """``fn(step, q, v, u)`` in place of the env's policy-step kernel."""
     env = prog.proxy._env
     inner = env._kstep
     env._kstep = _Wrapped(inner, fn)
@@ -60,55 +79,9 @@ def _wrap_kernel(prog, fn):
     return undo
 
 
-def plant(name: str, prog):
-    mode = prog.cell["mode"]
-    if name == "unchanged" and mode == "train":
-        from pbrl_tpu_torch.train import optim
-
-        step = optim.Adam.step
-
-        def frozen(self, params):
-            self.count += 1
-            return torch.zeros(())
-        optim.Adam.step = frozen
-        return lambda: setattr(optim.Adam, "step", step)
-    if name == "unchanged":
-        return _wrap_kernel(prog, lambda k, q, v, u: (q.clone(), v.clone(), *k(q, v, u)[2:]))
-    if name == "half_batch" and mode == "train":
-        from pbrl_tpu_torch.train import ppo
-
-        loss_fn = ppo.loss_fn
-
-        def half(policy, value, config, batch, adv, ret, obs_stats):
-            h = adv.shape[0] // 2
-            part = type(batch)(**{k: getattr(batch, k)[:h] for k in vars(batch)})
-            return loss_fn(policy, value, config, part, adv[:h], ret[:h], obs_stats)
-        ppo.loss_fn = half
-        return lambda: setattr(ppo, "loss_fn", loss_fn)
-    if name == "half_batch":
-        def half(k, q, v, u):
-            h = q.shape[0] // 2
-            out = list(k(q, v, u))
-            out[0] = torch.cat([out[0][:h], q[h:]])
-            out[1] = torch.cat([out[1][:h], v[h:]])
-            return tuple(out)
-        return _wrap_kernel(prog, half)
-    if name == "altered":
-        def altered(k, q, v, u):
-            out = list(k(q, v, u))
-            out[1] = out[1].clone()
-            out[1][:, 6] += 0.05
-            return tuple(out)
-        return _wrap_kernel(prog, altered)
-    env = prog.proxy._env
-    if name == "no_reset":
-        env.auto_reset = lambda state, *args, **kw: state
-
-        def undo():
-            del env.auto_reset
-        return undo
-    if name == "no_curriculum":
-        config = env.config
-        env.config = dataclasses.replace(config, curriculum_reset_prob=0.0)
-        return lambda: setattr(env, "config", config)
-    raise ValueError(f"unknown fault {name!r}; one of {FAULTS}")
+def _altered(k, q, v, u):
+    """The policy step with one joint's velocity off by 0.05 rad/s."""
+    out = list(k(q, v, u))
+    out[1] = out[1].clone()
+    out[1][:, 6] += 0.05
+    return tuple(out)

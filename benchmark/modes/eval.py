@@ -16,9 +16,11 @@ reference state at its start time.
 
 from __future__ import annotations
 
+import copy
+
 import torch
 
-from benchmark import judge
+from benchmark import faults, judge
 from benchmark.proxy import StepProxy
 from benchmark.reference.env import RefEnv
 from benchmark.reference.learner import Learner
@@ -26,9 +28,39 @@ from benchmark.reference.learner import Learner
 PAIRS = 512         # sampled (step, env) pairs the reference steps
 SAMPLED_ROWS = 32   # envs recorded at every step
 RECORDED_STEPS = 2048  # steps of the window whose sampled rows are kept
+FAULTS = ("unchanged", "half_batch", "altered")
+
+
+def _unchanged(k, q, v, u):
+    return (q.clone(), v.clone(), *k(q, v, u)[2:])
+
+
+def _half_batch(k, q, v, u):
+    h = q.shape[0] // 2
+    out = list(k(q, v, u))
+    out[0] = torch.cat([out[0][:h], q[h:]])
+    out[1] = torch.cat([out[1][:h], v[h:]])
+    return tuple(out)
+
+
+def plant(name: str, prog):
+    """Plant one of ``FAULTS`` in the policy-step kernel
+    (``benchmark/faults.py`` says what each breaks); returns its undo."""
+    fn = {"unchanged": _unchanged, "half_batch": _half_batch, "altered": faults._altered}
+    return faults._wrap_kernel(prog, fn[name])
+
+
+def tiny(cell: dict, conf: dict):
+    """A copy of a cell and its configuration that the CPU runs in seconds
+    (the benchmark's tests): 4 envs, a 4 ms policy step, 3 steps."""
+    conf = copy.deepcopy(conf)
+    conf["env_config"]["policy_dt"] = 0.004
+    return dict(cell, num_envs=4, episode_steps=3), conf
 
 
 class Program:
+    launches_kernel = True   # every env step is one mimic_step_kernel launch
+
     def __init__(self, cell: dict, conf: dict, device):
         from pbrl_tpu_torch.envs import EnvConfig, MimicVecEnv
         from pbrl_tpu_torch.mocap import load_clip

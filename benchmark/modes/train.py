@@ -32,6 +32,8 @@ states around it) are held to what a reset has to give
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import shutil
 import tempfile
@@ -39,16 +41,76 @@ import time
 
 import torch
 
-from benchmark import judge
+from benchmark import faults, judge
 from benchmark.proxy import StepProxy
 from benchmark.reference.env import RefEnv
 from benchmark.reference.learner import Learner
 
 FIRST_STEPS = 3     # set-up iterations the reference follows from the files
 PAIRS = 512         # sampled (step, env) pairs the reference steps
+FAULTS = ("unchanged", "half_batch", "altered", "no_reset", "no_curriculum")
+# Faults that ``correct`` does not catch yet: the judged iterations hold too
+# few curriculum candidates (done envs with a live peer in the phase window)
+# for their missing restarts to show in ``curriculum_tail``.
+MISSED = ("no_curriculum",)
+
+
+def applies(name: str, cell: dict, conf: dict) -> bool:
+    """``no_curriculum`` only where the configuration has a curriculum."""
+    return name != "no_curriculum" or conf["env_config"]["curriculum_reset_prob"] > 0
+
+
+def plant(name: str, prog):
+    """Plant one of ``FAULTS`` (``benchmark/faults.py`` says what each
+    breaks); returns its undo."""
+    if name == "unchanged":
+        from pbrl_tpu_torch.train import optim
+
+        step = optim.Adam.step
+
+        def frozen(self, params):
+            self.count += 1
+            return torch.zeros(())
+        optim.Adam.step = frozen
+        return lambda: setattr(optim.Adam, "step", step)
+    if name == "half_batch":
+        from pbrl_tpu_torch.train import ppo
+
+        loss_fn = ppo.loss_fn
+
+        def half(policy, value, config, batch, adv, ret, obs_stats):
+            h = adv.shape[0] // 2
+            part = type(batch)(**{k: getattr(batch, k)[:h] for k in vars(batch)})
+            return loss_fn(policy, value, config, part, adv[:h], ret[:h], obs_stats)
+        ppo.loss_fn = half
+        return lambda: setattr(ppo, "loss_fn", loss_fn)
+    if name == "altered":
+        return faults._wrap_kernel(prog, faults._altered)
+    env = prog.proxy._env
+    if name == "no_reset":
+        env.auto_reset = lambda state, *args, **kw: state
+
+        def undo():
+            del env.auto_reset
+        return undo
+    config = env.config  # no_curriculum
+    env.config = dataclasses.replace(config, curriculum_reset_prob=0.0)
+    return lambda: setattr(env, "config", config)
+
+
+def tiny(cell: dict, conf: dict):
+    """A copy of a cell and its configuration that the CPU runs in seconds
+    (the benchmark's tests): 4 envs, a 4 ms policy step, episodes of 6 ms
+    so that every rollout resets, 2-step rollouts, 2 minibatches, 1 epoch."""
+    conf = copy.deepcopy(conf)
+    conf["env_config"].update(policy_dt=0.004, max_episode_time=0.006)
+    return dict(cell, num_envs=4, train_set={"num_envs": 4, "unroll_length": 2,
+                                             "num_minibatches": 2, "update_epochs": 1}), conf
 
 
 class Program:
+    launches_kernel = True   # every rollout step is one mimic_step_kernel launch
+
     def __init__(self, cell: dict, conf: dict, device):
         from pbrl_tpu_torch.envs import EnvConfig, MimicVecEnv
         from pbrl_tpu_torch.mocap import load_clip
@@ -214,7 +276,8 @@ class Program:
         return {"env": RefEnv(self.conf["clip"], self.env_config, device),
                 "make_learner": lambda: Learner(self.files[0], self.files[1], self.train_config,
                                                 device),
-                "learner_at": lambda state: Learner.from_state(state, self.train_config, device)}
+                "learner_at": lambda state, dtype=torch.float32: Learner.from_state(
+                    state, self.train_config, device, dtype)}
 
     def _judge(self, env, learner, got, it, n, control):
         """One iteration: ``n`` sampled (step, env) pairs with the
@@ -246,6 +309,34 @@ class Program:
             got_loss = m["loss_policy"] + c.value_cost * m["loss_value"] - c.entropy_cost * m["entropy"]
             got_grads = self.grads
         return pair, (got_loss, float(metrics["loss"])), (got_grads, grads)
+
+    def unit_readings(self, ref: dict, witness: bool = False) -> dict:
+        """``window_delta_gap`` of the unit just run, read as ``numbers``
+        reads it of the window's last unit but without the rest of the
+        judge, so that calibration reads it after every unit (read it before
+        the next unit starts): the program's, the control's (the reference
+        in TF32 in its place) and, with ``witness``, the program's and the
+        reference's against the reference in float64."""
+        it = self.last
+        r = self._rollout(it["steps"])
+        inputs = (r["obs"], r["action"], r["reward"], r["done"], it["final"].obs)
+        got = {k: it["after"][k] - self.before["params"][k] for k in self.before["params"]}
+
+        def delta(dtype=torch.float32, low=False):
+            learner = ref["learner_at"](self.before, dtype)
+            start = {k: p.clone() for k, p in learner.params.items()}
+            with _tf32() if low else contextlib.nullcontext():
+                learner.learn(*(x.to(dtype) for x in inputs), it["perms"])
+            return {k: learner.params[k] - start[k] for k in start}
+
+        ref32 = delta()
+        out = {"window_delta_gap": judge.leaf_gap(got, ref32)[0],
+               "control_window_delta_gap": judge.leaf_gap(delta(low=True), ref32)[0]}
+        if witness:
+            ref64 = delta(torch.float64)
+            out["program_f64_gap"] = judge.leaf_gap(got, ref64)[0]
+            out["reference_f64_gap"] = judge.leaf_gap(ref32, ref64)[0]
+        return out
 
     def _transitions(self, iterations):
         """(state a step left, state ``auto_reset`` made of it) of every

@@ -73,12 +73,14 @@ class Learner:
         self._configure(train_config)
 
     @classmethod
-    def from_state(cls, state: dict, train_config: dict, device="cuda"):
+    def from_state(cls, state: dict, train_config: dict, device="cuda", dtype=torch.float32):
         """A learner at a given state, copied: ``state`` holds ``params``,
         ``mu`` and ``nu`` (leaf name -> tensor), Adam's ``count`` and the
-        observation ``stats`` (count, mean, m2)."""
+        observation ``stats`` (count, mean, m2). ``dtype`` float64 makes the
+        witness that calibration holds float32 against (``learn`` then
+        takes float64 inputs)."""
         self = cls.__new__(cls)
-        t = lambda x: x.detach().to(torch.device(device), torch.float32).clone()
+        t = lambda x: x.detach().to(torch.device(device), dtype).clone()
         self.params = {k: t(v) for k, v in state["params"].items()}
         self.mu = {k: t(v) for k, v in state["mu"].items()}
         self.nu = {k: t(v) for k, v in state["nu"].items()}

@@ -4,7 +4,7 @@
 
 Everything a cell needs is found by name: the cell in
 ``benchmark/workloads/<name>.json``, its configuration in
-``benchmark/configs/<config>.json``, its mode (train or eval) in
+``benchmark/configs/<config>.json``, its mode (train, eval, ...) in
 ``benchmark/modes/<mode>.py`` and each metric's reader in
 ``benchmark/metrics/<metric>.py``; ``BENCHMARK.json`` says which metrics a
 cell reports. Set-up (imports, the env and its clip, the weights, the
@@ -65,6 +65,11 @@ def cell_metrics(manifest: dict, name: str, trace: bool):
     e2e = {m["name"] for m in manifest["end_to_end"] if name in m.get("workloads", [name])}
     return [m for m in manifest["per_layer"]
             if name in m.get("workloads", [name]) and m["moves"] in e2e]
+
+
+def mode_of(cell: dict):
+    """The module ``benchmark/modes/<mode>.py`` that drives a cell."""
+    return importlib.import_module(f"benchmark.modes.{cell['mode']}")
 
 
 def reader(metric: str):
@@ -207,8 +212,8 @@ def run_cell(args, manifest, cell, conf, device, log, break_program=None):
     from benchmark import flops, judge
 
     on_card = torch.device(device).type == "cuda"
-    mode = importlib.import_module(f"benchmark.modes.{cell['mode']}")
-    prog = mode.Program(cell, conf, device)
+    prog = mode_of(cell).Program(cell, conf, device)
+    kernel = prog.launches_kernel  # whether the mode steps through mimic_step_kernel
     if break_program is not None:
         break_program(prog)
     prog.start(args.seed)
@@ -218,14 +223,14 @@ def run_cell(args, manifest, cell, conf, device, log, break_program=None):
         torch.cuda.reset_peak_memory_stats()
     setup_s = process_start_s()
     log(f"set-up: {setup_s:.4f} s")
-    if on_card:
+    if on_card and kernel:
         from pbrl_tpu_torch.ops import mimic_kernel
 
         log(f"kernel occupancy: {json.dumps(mimic_kernel.occupancy())}")
-    launches0 = prog.launches()
+    launches0 = prog.launches() if kernel else 0
     win = run_window(prog, cell, args.seconds, bool(args.trace), log, device)
     intervals = prog.proxy.step_intervals_ms()
-    launches = prog.launches() - launches0
+    launches = prog.launches() - launches0 if kernel else 0
     rollout_steps = win["units"] * prog.steps_per_unit // max(1, cell["num_envs"])
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     log(f"kernel launches in the window: {launches} for {rollout_steps} policy steps; "
@@ -244,7 +249,7 @@ def run_cell(args, manifest, cell, conf, device, log, break_program=None):
         intervals_ms=intervals, spans=win["spans"], trace=win["trace"], program=prog,
         policy_steps_per_unit=prog.steps_per_unit // cell["num_envs"], num_envs=cell["num_envs"],
         flops=flops, log=log, card=card_info() if on_card else {}, kernel=None)
-    if args.trace:
+    if args.trace and kernel:
         spec = ref["env"].spec
         q, v, u = prog.kernel_inputs(ref["env"])
         prog.kernel_flop_per_env = flops.kernel_flop_per_env(spec, q, v, u)

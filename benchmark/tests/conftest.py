@@ -1,7 +1,7 @@
-"""Settings of the benchmark's own tests: the ``gpu`` marker, and cells cut
-to a size the CPU runs in seconds (2 substeps a policy step, 4 envs)."""
+"""Settings of the benchmark's own tests: the ``gpu`` marker and the card.
+Each mode cuts its cells to a size the CPU runs in seconds (its
+``tiny(cell, conf)``)."""
 
-import json
 import os
 import sys
 
@@ -14,21 +14,6 @@ if ROOT not in sys.path:
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "gpu: needs a CUDA card; skips without one")
-
-
-def tiny(cell: dict, conf: dict):
-    """A copy of a cell and its configuration at 4 envs and a 4 ms policy
-    step; in training, episodes of 6 ms, so that every rollout resets."""
-    conf = json.loads(json.dumps(conf))
-    conf["env_config"]["policy_dt"] = 0.004
-    cell = dict(cell, num_envs=4)
-    if cell["mode"] == "train":
-        conf["env_config"]["max_episode_time"] = 0.006
-        cell["train_set"] = {"num_envs": 4, "unroll_length": 2, "num_minibatches": 2,
-                             "update_epochs": 1}
-    else:
-        cell["episode_steps"] = 3
-    return cell, conf
 
 
 @pytest.fixture

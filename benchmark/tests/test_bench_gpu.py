@@ -35,12 +35,9 @@ SMALL = {"walk-eval": {"num_envs": 512, "episode_steps": 60},
 def readings(name, change, seed=2 ** 31 + 5):
     """(the program's numbers, the control's) of one seed: set-up and one
     window unit."""
-    import importlib
-
     _, cell, conf = run.load_cell(name)
     cell = {**cell, **change}
-    mode = importlib.import_module(f"benchmark.modes.{cell['mode']}")
-    prog = mode.Program(cell, conf, "cuda")
+    prog = run.mode_of(cell).Program(cell, conf, "cuda")
     ref = prog.reference("cuda")
     prog.start(seed)
     prog.warm()

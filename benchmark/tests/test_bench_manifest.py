@@ -10,7 +10,7 @@ import types
 import pytest
 
 from benchmark import run
-from conftest import ROOT, tiny
+from conftest import ROOT
 
 MANIFEST = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
 
@@ -25,24 +25,53 @@ def test_manifest_keys_and_files():
         assert callable(run.reader(m["name"]))
 
 
-@pytest.mark.parametrize("name", [w["name"] for w in MANIFEST["workloads"]])
-def test_cell_found_by_name(name):
-    manifest, cell, conf = run.load_cell(name)
-    w = next(w for w in MANIFEST["workloads"] if w["name"] == name)
+def cell_rules(manifest: dict, name: str):
+    """Every rule a cell of ``manifest`` keeps, found by name through the
+    ``benchmark`` on the path: its files, its metrics and its rate."""
+    _, cell, _ = run.load_cell(name)
+    w = next(w for w in manifest["workloads"] if w["name"] == name)
     assert cell["config"] == w["config"] and cell["traffic"] == w["traffic"]
-    assert os.path.exists(os.path.join(ROOT, "benchmark", "modes", f"{cell['mode']}.py"))
-    names = {m["name"] for m in run.cell_metrics(manifest, name, trace=False)}
-    assert {"step_ms_p95", "setup_s"} <= names
-    layer = {m["name"] for m in run.cell_metrics(manifest, name, trace=True)}
+    assert os.path.exists(os.path.join(run.HERE, "modes", f"{cell['mode']}.py"))
+    e2e = run.cell_metrics(manifest, name, trace=False)
+    assert {"step_ms_p95", "setup_s"} <= {m["name"] for m in e2e}
+    layer = run.cell_metrics(manifest, name, trace=True)
     assert layer
-    # the window's rate: end to end where its runs hold a bound, per layer elsewhere
-    assert ("env_steps_per_s" in names) != ("untraced_env_steps_per_s" in layer)
+    # The window's rate, exactly once: end to end as env_steps_per_s, or
+    # through one per-layer entry of unit env-steps/s that names the cell.
+    e2e_rates = [m for m in e2e if m["unit"] == "env-steps/s"]
+    layer_rates = [m for m in manifest["per_layer"] if m["unit"] == "env-steps/s"
+                   and name in m.get("workloads", [name])]
+    assert len(e2e_rates) + len(layer_rates) == 1, (e2e_rates, layer_rates)
+    if e2e_rates:
+        assert e2e_rates[0]["name"] == "env_steps_per_s"
+    else:
+        assert name in layer_rates[0].get("workloads", []) and layer_rates[0] in layer
     assert cell["limits"]
 
 
+@pytest.mark.parametrize("name", [w["name"] for w in MANIFEST["workloads"]])
+def test_cell_found_by_name(name):
+    cell_rules(MANIFEST, name)
+
+
+def test_rate_rule_counts_each_cell_once():
+    """A cell with its rate twice (end to end and per layer), or with none,
+    breaks the rule."""
+    both = json.loads(json.dumps(MANIFEST))
+    next(m for m in both["end_to_end"] if m["name"] == "env_steps_per_s")["workloads"].append(
+        "walk-eval")
+    none = json.loads(json.dumps(MANIFEST))
+    next(m for m in none["per_layer"] if m["name"] == "untraced_env_steps_per_s")[
+        "workloads"].remove("walk-eval")
+    for manifest in (both, none):
+        with pytest.raises(AssertionError):
+            cell_rules(manifest, "walk-eval")
+
+
 def test_new_workload_file_is_picked_up(tmp_path):
-    """A copy of the benchmark with one more workload file (and its entry in
-    the manifest) finds the new cell with no other edit."""
+    """A copy of the benchmark with one more workload file and its own
+    per-layer rate file (and their entries appended to the manifest) finds
+    the new cell, and the cell keeps every rule, with no other edit."""
     dst = tmp_path / "repo"
     shutil.copytree(os.path.join(ROOT, "benchmark"), dst / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -50,22 +79,30 @@ def test_new_workload_file_is_picked_up(tmp_path):
     cell = json.load(open(dst / "benchmark" / "workloads" / "walk-eval.json"))
     cell.update(name="walk-eval-16k", num_envs=16384, traffic="eval_16384x300")
     json.dump(cell, open(dst / "benchmark" / "workloads" / "walk-eval-16k.json", "w"))
+    (dst / "benchmark" / "metrics" / "walk-eval-16k.env_steps_per_s.py").write_text(
+        "from benchmark.run import reader\n\nread = reader('untraced_env_steps_per_s')\n")
     manifest["workloads"].append({"name": "walk-eval-16k", "config": "walk",
                                   "traffic": "eval_16384x300", "chips": 1, "why": "test"})
+    manifest["per_layer"].append({"name": "walk-eval-16k.env_steps_per_s", "unit": "env-steps/s",
+                                  "better": "higher", "source": "host_clock",
+                                  "layer": "whole step", "moves": "step_ms_p95",
+                                  "workloads": ["walk-eval-16k"]})
     json.dump(manifest, open(dst / "BENCHMARK.json", "w"))
-    code = ("import sys; sys.path.insert(0, %r); from benchmark import run; "
+    code = ("import sys; sys.path[:0] = [%r, %r]; from benchmark import run; "
+            "import test_bench_manifest as t; t.cell_rules(t.MANIFEST, 'walk-eval-16k'); "
             "m, c, f = run.load_cell('walk-eval-16k'); "
-            "print(c['num_envs'], f['clip'], [x['name'] for x in run.cell_metrics(m, 'walk-eval-16k', False)])"
-            % str(dst))
+            "print(c['num_envs'], f['clip'], [x['name'] for x in run.cell_metrics(m, 'walk-eval-16k', False)], "
+            "run.reader('walk-eval-16k.env_steps_per_s').__module__)"
+            % (str(dst), str(dst / "benchmark" / "tests")))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=dst,
                          timeout=60)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.startswith("16384 walk ['step_ms_p95', 'setup_s']")
+    assert out.stdout.startswith("16384 walk ['step_ms_p95', 'setup_s'] benchmark_metric_")
 
 
 def test_result_line_keys():
     manifest, cell, conf = run.load_cell("walk-eval")
-    cell, conf = tiny(cell, conf)
+    cell, conf = run.mode_of(cell).tiny(cell, conf)
     args = types.SimpleNamespace(workload="walk-eval", seed=2 ** 31 + 11, seconds=0.01, trace=0)
     out = run.run_cell(args, manifest, cell, conf, "cpu", lambda m: None)
     assert list(out) == ["correct", "attempted", "failed", "metrics", "device", "checks"]
@@ -81,19 +118,18 @@ def test_no_jax_and_a_reference_apart_from_the_program():
     pbrl_tpu (top-level names compared whole), and the reference and the
     yardstick load nothing of pbrl_tpu_torch."""
     code = (
-        "import sys, types; sys.path.insert(0, %r); sys.path.insert(0, %r)\n"
+        "import sys, types; sys.path.insert(0, %r)\n"
         "import benchmark.reference.env, benchmark.reference.learner, benchmark.judge, "
         "benchmark.flops, benchmark.trace\n"
         "tops = {m.split('.')[0] for m in sys.modules}\n"
         "assert 'pbrl_tpu_torch' not in tops, 'the reference loads the program'\n"
         "from benchmark import run\n"
-        "from conftest import tiny\n"
-        "m, c, f = run.load_cell('walk-eval'); c, f = tiny(c, f)\n"
+        "m, c, f = run.load_cell('walk-eval'); c, f = run.mode_of(c).tiny(c, f)\n"
         "a = types.SimpleNamespace(workload='walk-eval', seed=3, seconds=0.01, trace=0)\n"
         "run.run_cell(a, m, c, f, 'cpu', lambda s: None)\n"
         "tops = {m.split('.')[0] for m in sys.modules}\n"
         "print(sorted(tops & {'jax', 'jaxlib', 'flax', 'pbrl_tpu'}), 'pbrl_tpu_torch' in tops)\n"
-        % (ROOT, os.path.join(ROOT, "benchmark", "tests")))
+        % ROOT)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT,
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]

@@ -10,6 +10,12 @@
 1..n-1 hold them (pbrl_tpu carries them through its ``lax.scan``).
 Acceleration uses MuJoCo's implicit-damping Euler:
 ``(M + h diag(damping + imp_damping)) qacc = qfrc_smooth + qfrc_constraint``.
+
+Spans (:func:`~pbrl_tpu_torch.utils.profiling.trace_annotation`, on while a
+profiler records), one set per substep: ``engine/kinematics``,
+``engine/collision``, ``engine/dynamics`` (the inertial quantities, the
+actuators and the controller), ``engine/solve`` (the constraint solve and
+the acceleration) and ``engine/integrate``.
 """
 
 from __future__ import annotations
@@ -25,12 +31,9 @@ from pbrl_tpu_torch.engine.data import Data, make_data, model_cache  # noqa: F40
 from pbrl_tpu_torch.maths import quaternion as quat
 from pbrl_tpu_torch.model.spec import JointType, Model
 from pbrl_tpu_torch.ops.linalg import solve_spd
+from pbrl_tpu_torch.utils.profiling import trace_annotation
 
 _QVEL_LIMIT = 1e3  # defensive clamp: keeps f32 contact blowups from cascading into NaNs
-
-
-def fwd_position(model: Model, data: Data) -> Data:
-    return collision.collide(model, kinematics.kinematics(model, data))
 
 
 def fwd_velocity(model: Model, data: Data) -> Data:
@@ -64,15 +67,20 @@ def forward(model: Model, data: Data, qfrc_fn=None, held_self=None, use_held=Non
     ``qfrc_applied``) or a whole ``Data`` (implicit PD also sets
     ``imp_damping``). ``held_self``/``use_held``/``return_self_masses`` are
     the 'step' self-contact-mass plumbing of :func:`solver.contact_forces`."""
-    data = fwd_velocity(model, fwd_position(model, data))
-    data = dynamics.actuation(model, data)
-    if qfrc_fn is not None:
-        out = qfrc_fn(model, data)
-        data = out if isinstance(out, Data) else data.replace(qfrc_applied=out)
-    out = solver.constraint_forces(model, data, held_self=held_self, use_held=use_held,
-                                   return_masses=return_self_masses)
-    data, masses = out if return_self_masses else (out, None)
-    data = fwd_acceleration(model, data)
+    with trace_annotation("engine/kinematics"):
+        data = kinematics.kinematics(model, data)
+    with trace_annotation("engine/collision"):
+        data = collision.collide(model, data)
+    with trace_annotation("engine/dynamics"):
+        data = dynamics.actuation(model, fwd_velocity(model, data))
+        if qfrc_fn is not None:
+            out = qfrc_fn(model, data)
+            data = out if isinstance(out, Data) else data.replace(qfrc_applied=out)
+    with trace_annotation("engine/solve"):
+        out = solver.constraint_forces(model, data, held_self=held_self, use_held=use_held,
+                                       return_masses=return_self_masses)
+        data, masses = out if return_self_masses else (out, None)
+        data = fwd_acceleration(model, data)
     return (data, masses) if return_self_masses else data
 
 
@@ -134,7 +142,8 @@ def step(model: Model, data: Data, ctrl: Optional[torch.Tensor] = None, qfrc_fn=
     out = forward(model, data, qfrc_fn=qfrc_fn, held_self=held_self, use_held=use_held,
                   return_self_masses=return_self_masses)
     data, masses = out if return_self_masses else (out, None)
-    data = integrate(model, data)
+    with trace_annotation("engine/integrate"):
+        data = integrate(model, data)
     return (data, masses) if return_self_masses else data
 
 

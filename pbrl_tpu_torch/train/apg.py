@@ -23,6 +23,13 @@ estimate of it:
   critic and the obs statistics ride along, so an APG run is evaluated and
   resumed like a PPO run.
 
+Spans and counters (on while a profiler records): ``apg/forward``,
+``apg/backward`` and ``apg/update`` around an iteration's phases;
+``apg/step`` around each window step, in the forward and again in each of
+the checkpoint's recomputes inside the backward; ``apg/loss`` around the
+value tail and the mean. Counter ``apg/recomputes``: the window steps
+recomputed in the backward (``optim.Adam`` counts ``apg/nonfinite_grad``).
+
 The policy-step kernel has no backward (pbrl_tpu's Pallas kernel defines no
 VJP), so a ``MimicVecEnv`` on the kernel backend is refused. The window
 runs in full f32 (:func:`~pbrl_tpu_torch.maths.numeric.full_f32`), its
@@ -70,7 +77,7 @@ from pbrl_tpu_torch.parallel.mesh import mesh_of, shard_batch
 from pbrl_tpu_torch.train import checkpoint as ckpt
 from pbrl_tpu_torch.train import networks, optim, ppo, running_stats
 from pbrl_tpu_torch.utils.configio import save_json_config
-from pbrl_tpu_torch.utils.profiling import profile_scope
+from pbrl_tpu_torch.utils.profiling import count, profile_scope, trace_annotation
 from pbrl_tpu_torch.utils.tree import map_states
 
 
@@ -157,16 +164,23 @@ def window_loss(env, config: APGConfig, policy, value, obs_stats, entry_state,
     if config.action_noise > 0 and noise is None:
         raise ValueError("action_noise > 0 needs the window's noise draw")
 
+    calls = 0
+
     def one_step(state, alive, acc, disc, eps):
-        mean, _ = policy(_norm_obs(config, obs_stats, state.obs))
-        if config.action_noise > 0:
-            mean = mean + config.action_noise * eps
-        nstate = env.step(state, mean)
-        done = nstate.done.detach()
-        # the terminating step's reward counts (the env zeroes it on a
-        # fall or off-pose); the steps after it are masked
-        acc = acc + disc * alive * nstate.reward
-        return nstate, alive * (1.0 - done), acc
+        nonlocal calls
+        calls += 1
+        if calls > config.horizon:  # the checkpoint's recompute, inside the backward
+            count("apg/recomputes", 1)
+        with trace_annotation("apg/step"):
+            mean, _ = policy(_norm_obs(config, obs_stats, state.obs))
+            if config.action_noise > 0:
+                mean = mean + config.action_noise * eps
+            nstate = env.step(state, mean)
+            done = nstate.done.detach()
+            # the terminating step's reward counts (the env zeroes it on a
+            # fall or off-pose); the steps after it are masked
+            acc = acc + disc * alive * nstate.reward
+            return nstate, alive * (1.0 - done), acc
 
     B = entry_state.done.shape[0]
     dev = entry_state.done.device
@@ -186,11 +200,12 @@ def window_loss(env, config: APGConfig, policy, value, obs_stats, entry_state,
         if config.update_obs_stats:
             obses.append(state.obs.detach())
 
-    ret = acc
-    if config.value_bootstrap:
-        v_tail = value(_norm_obs(config, obs_stats, state.obs))
-        ret = ret + (config.gamma ** config.horizon) * alive * v_tail
-    loss = -torch.mean(ret) / (config.horizon * ranks)
+    with trace_annotation("apg/loss"):
+        ret = acc
+        if config.value_bootstrap:
+            v_tail = value(_norm_obs(config, obs_stats, state.obs))
+            ret = ret + (config.gamma ** config.horizon) * alive * v_tail
+        loss = -torch.mean(ret) / (config.horizon * ranks)
 
     rews, dones = torch.stack(rews), torch.stack(dones)
     aux = {

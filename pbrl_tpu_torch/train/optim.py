@@ -19,7 +19,8 @@ Written out rather than taken from ``torch.optim`` and
 A parameter without a gradient (``fixed_log_std``) counts as a zero
 gradient, as under ``stop_gradient``: its moments still decay. ``zero_nans``
 replaces each NaN gradient entry by 0 before the clip (infinities stay,
-as in optax); the norm :meth:`Adam.step` returns is the raw gradients'.
+as in optax) and counts them in ``apg/nonfinite_grad`` (while a profiler
+records); the norm :meth:`Adam.step` returns is the raw gradients'.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from pbrl_tpu_torch.utils.profiling import trace_annotation
+from pbrl_tpu_torch.utils.profiling import count, trace_annotation
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -70,7 +71,10 @@ class Adam:
             self.nu = {k: torch.zeros_like(p) for k, p in params.items()}
         raw_norm = norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
         if self.zero_nans:
-            grads = {k: torch.where(torch.isnan(g), 0.0, g) for k, g in grads.items()}
+            nans = {k: torch.isnan(g) for k, g in grads.items()}
+            for nan in nans.values():
+                count("apg/nonfinite_grad", nan)
+            grads = {k: torch.where(nans[k], 0.0, g) for k, g in grads.items()}
             norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
         keep = norm < self.max_grad_norm
         lr = self.lr(self.count)

@@ -496,23 +496,33 @@ def watch_endings(env, keep=0, keep_at=None):
     (the kernel's, with the kernel backend) of the first ``keep`` envs at
     every step; with ``keep_at``, those of every env at that step (0-based)
     as ``kept_at``. A few small device operations per step; no copy to the
-    host."""
+    host. The spy on the physics writes what it sees into buffers that each
+    step reads after the call, so a replayed CUDA graph of the step, which
+    holds the spy's device operations but does not call it, fills them too."""
+    import torch
+
     physics, step = env._physics, env.step
     rec = {"env": env, "t0": None, "done": [], "fall": [], "bad": [], "time": [], "inputs": []}
+    seen = {}  # the last physics call's inputs and raw-output finiteness
 
     def spy(q, v, u):
-        if keep:
-            rec["inputs"].append(tuple(x[:keep].clone() for x in (q, v, u)))
-        if len(rec["bad"]) == keep_at:
-            rec["kept_at"] = tuple(x.clone() for x in (q, v, u))
         out = physics(q, v, u)
-        rec["bad"].append(~(out[0].isfinite().all(1) & out[1].isfinite().all(1)))
+        bad = ~(out[0].isfinite().all(1) & out[1].isfinite().all(1))
+        for k, x in zip("qvub", (q, v, u, bad)):
+            if k not in seen or seen[k].shape != x.shape:
+                seen[k] = torch.empty_like(x)
+            seen[k].copy_(x)
         return out
 
     def watched(state, action):
         if rec["t0"] is None:
             rec["t0"] = state.episode_start
         out = step(state, action)
+        if keep:
+            rec["inputs"].append(tuple(seen[k][:keep].clone() for k in "qvu"))
+        if len(rec["bad"]) == keep_at:
+            rec["kept_at"] = tuple(seen[k].clone() for k in "qvu")
+        rec["bad"].append(seen["b"].clone())
         rec["done"].append(out.done > 0)
         rec["fall"].append(out.metrics["fall"] > 0)
         rec["time"].append(out.time)

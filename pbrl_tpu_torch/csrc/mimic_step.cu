@@ -78,6 +78,7 @@
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
+#include <atomic>
 #define NLANE LANES
 #define DEV __device__ __forceinline__
 #define SYNC() __syncwarp()
@@ -1168,17 +1169,27 @@ mimic_step_kernel(const Model* __restrict__ m, int B, const float* __restrict__ 
 }
 
 // The widest block that shared memory allows (at most MAX_WARPS warps) on
-// the current device, and how many of them an SM holds.  Worked out at every
-// launch (the attribute is per device, and the queries take microseconds).
+// the current device, and how many of them an SM holds.  Worked out once per
+// device (the attribute is per device), at its first launch or occupancy
+// query, so that a launch inside a CUDA graph's capture makes no other call.
 struct Shape {
   int warps, smem, sms, blocks_per_sm;
 };
 
+static const int kMaxDevices = 64;
+static Shape g_shape[kMaxDevices];
+static std::atomic<bool> g_shape_known[kMaxDevices];
+
 static cudaError_t launch_shape(Shape* out) {
   int dev = 0, optin = 0, sms = 0, bps = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  const bool cached = dev >= 0 && dev < kMaxDevices;
+  if (cached && g_shape_known[dev].load(std::memory_order_acquire)) {
+    *out = g_shape[dev];
+    return cudaSuccess;
+  }
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
   int warps = (optin - kHotBytes) / (int)sizeof(Work);
@@ -1190,6 +1201,10 @@ static cudaError_t launch_shape(Shape* out) {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&bps, mimic_step_kernel, 32 * warps, smem);
   if (e != cudaSuccess) return e;
   *out = {warps, smem, sms, bps};
+  if (cached) {
+    g_shape[dev] = *out;
+    g_shape_known[dev].store(true, std::memory_order_release);
+  }
   return cudaSuccess;
 }
 

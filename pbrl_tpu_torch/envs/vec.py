@@ -28,6 +28,7 @@ peer is drawn among the alive envs of all ranks.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -46,7 +47,7 @@ from pbrl_tpu_torch.maths import quaternion as quat
 from pbrl_tpu_torch.mocap.clip import (MotionClip, phase, reference_aux,
                                        reference_frame_index, reference_state)
 from pbrl_tpu_torch.model.spec import Model
-from pbrl_tpu_torch.ops.mimic_kernel import build_mimic_step
+from pbrl_tpu_torch.ops.mimic_kernel import build_mimic_step, captured_launches
 from pbrl_tpu_torch.parallel.mesh import SINGLE, Mesh
 from pbrl_tpu_torch.utils.profiling import count, trace_annotation
 
@@ -58,6 +59,90 @@ def _to(clip: MotionClip, device) -> MotionClip:
             ("qpos", "qvel", "dt", "cycle_time", "cycle_offset", "ee_pos", "com")
             if getattr(clip, k) is not None}
     return clip.replace(**move)
+
+
+# A packed block's segments start on the caching allocator's 512-byte
+# boundary: a kernel meets a view of the block with the alignment, and so
+# takes the vectorised path, that it meets in a tensor of its own.
+_ALIGN = 128  # float32 words
+
+
+def _layout(shapes):
+    """Each shape's (offset, size) in a packed float32 block, and the
+    block's size."""
+    spans, at = [], 0
+    for shape in shapes:
+        n = math.prod(shape)
+        spans.append((at, n))
+        at += -(-n // _ALIGN) * _ALIGN
+    return spans, at
+
+
+def _fillers(layout, size, device):
+    """For each segment, an unset tensor of the words between it and the
+    next one, or None where it ends on the boundary."""
+    ends = [at for at, _ in layout[1:]] + [size]
+    return [torch.empty(end - at - n, device=device) if end > at + n else None
+            for (at, n), end in zip(layout, ends)]
+
+
+def _pack(tensors, fillers, out=None):
+    """``tensors`` in one packed block (``out`` when given) by one ``cat``."""
+    parts = []
+    for x, fill in zip(tensors, fillers):
+        parts += [x.reshape(-1)] if fill is None else [x.reshape(-1), fill]
+    return torch.cat(parts, out=out)
+
+
+def _unpack(block, layout, shapes):
+    return [block[at:at + n].view(shape) for (at, n), shape in zip(layout, shapes)]
+
+
+class _StepGraph:
+    """:meth:`MimicVecEnv._advance` captured as one CUDA graph for one shape
+    of inputs. A replay copies the inputs into the graph's packed input block
+    (one ``cat``), replays, and clones its packed output block (one copy);
+    the outputs are views of that clone, so no tensor a caller holds is ever
+    written again. Each kernel launch the graph holds is added to its
+    wrapper's ``launches`` at every replay."""
+
+    def __init__(self, env: "MimicVecEnv", inputs):
+        dev = inputs[0].device
+        shapes = [x.shape for x in inputs]
+        self._in_layout, size = _layout(shapes)
+        self._in = torch.zeros(size, device=dev)
+        self._in_fill = _fillers(self._in_layout, size, dev)
+        static = _unpack(self._in, self._in_layout, shapes)
+        # Captured on a side stream (the default one cannot capture), with
+        # no synchronize of the device (``torch.cuda.graph`` makes one).
+        self._graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.no_grad(), captured_launches() as launched, torch.cuda.stream(side):
+            self._graph.capture_begin()
+            try:
+                out, metrics = env._advance(*static)
+                out["bad"] = out["bad"].to(torch.float32)
+                outs = list(out.values()) + list(metrics.values())  # all float32
+                self._shapes = [x.shape for x in outs]
+                self._out_layout, size = _layout(self._shapes)
+                self._out = _pack(outs, _fillers(self._out_layout, size, dev))
+            finally:
+                self._graph.capture_end()
+        self._launched = launched
+        self._names, self._metric_names = list(out), list(metrics)
+
+    def replay(self, state: VecState, action: torch.Tensor) -> VecState:
+        _pack((state.qpos, state.qvel, state.time, state.episode_start, action),
+              self._in_fill, out=self._in)
+        self._graph.replay()
+        for kstep in self._launched:
+            kstep.launches += 1
+        views = _unpack(self._out.clone(), self._out_layout, self._shapes)
+        n = len(self._names)
+        out = dict(zip(self._names, views[:n]))
+        count("vec/quarantined", out.pop("bad"))
+        return state.replace(**out, metrics=dict(zip(self._metric_names, views[n:])))
 
 
 class MimicVecEnv:
@@ -119,6 +204,7 @@ class MimicVecEnv:
         else:
             self._fall_mask = torch.as_tensor(task.fall_mask(model, allowed), device=dev)
 
+        self._graphs = {}  # input shapes -> (owner, _StepGraph or None): see step
         self._qposadr = torch.as_tensor(model.actuator_qposadr, device=dev)
         rng = model.jnt_range[list(model.actuator_jntid())]  # (nu, 2) actuator order
         self._act_lo = torch.as_tensor(rng[:, 0], device=dev)
@@ -349,31 +435,76 @@ class MimicVecEnv:
                         metrics=metrics)
 
     def step(self, state: VecState, action: torch.Tensor) -> VecState:
-        """One policy step of the batch. Spans: ``vec/step`` around it;
-        ``vec/targets``, ``vec/physics`` (the kernel's launch, or the
-        engine), ``vec/obs``, ``vec/reward``, and ``vec/termination``
-        twice (the NaN quarantine before the obs, ``done`` after the
-        reward). Counter: ``vec/quarantined``, the envs the quarantine
-        catches."""
+        """One policy step of the batch.
+
+        On the card the step replays one CUDA graph of its body
+        (:class:`_StepGraph`) when the backend is the kernel, the PD is
+        per substep (held PD runs the engine's solve, which copies from the
+        host), the five inputs are float32 and none needs a gradient. The
+        first call for a shape of inputs runs eagerly (it loads the
+        kernel and the tables), the second captures the graph, later ones
+        replay it; swapping ``_kstep``, ``_physics`` or ``config`` on the
+        env starts over. Everything else (the CPU, the engine backend,
+        autograd through the step) runs the body eagerly. Both give the
+        same bits: the graph holds the same kernels on the same inputs.
+
+        Spans: ``vec/step`` around it; on an eager step ``vec/targets``,
+        ``vec/physics`` (the kernel's launch, or the engine), ``vec/obs``,
+        ``vec/reward``, and ``vec/termination`` twice (the NaN quarantine
+        before the obs, ``done`` after the reward) inside it. A replay has
+        no child span. Counters: ``vec/steps`` (every call),
+        ``vec/graph_replays``, ``vec/graph_captures`` and
+        ``vec/quarantined``, the envs the quarantine catches."""
         with trace_annotation("vec/step"):
-            return self._step(state, action)
+            count("vec/steps", 1)
+            graph = self._graph(state, action)
+            if graph is None:
+                return self._step(state, action)
+            count("vec/graph_replays", 1)
+            return graph.replay(state, action)
+
+    def _graph(self, state: VecState, action: torch.Tensor):
+        """The captured step for these inputs, or None to run eagerly."""
+        inputs = (state.qpos, state.qvel, state.time, state.episode_start, action)
+        if (self.backend != "kernel" or self._held_pd or not state.qpos.is_cuda
+                or any(x.dtype != torch.float32 for x in inputs)
+                or torch.is_grad_enabled() and any(x.requires_grad for x in inputs)):
+            return None
+        key = tuple(tuple(x.shape) for x in inputs) + (state.qpos.device,)
+        owner = (self._kstep, getattr(self._physics, "__func__", self._physics), self.config)
+        found = self._graphs.get(key)
+        if found is None or any(a is not b for a, b in zip(found[0], owner)):
+            self._graphs[key] = (owner, None)  # this key's eager first call
+            return None
+        if found[1] is None:
+            found = self._graphs[key] = (owner, _StepGraph(self, inputs))
+            count("vec/graph_captures", 1)
+        return found[1]
 
     def _step(self, state: VecState, action: torch.Tensor) -> VecState:
+        out, metrics = self._advance(state.qpos, state.qvel, state.time, state.episode_start,
+                                     action)
+        count("vec/quarantined", out.pop("bad"))
+        return state.replace(**out, metrics=metrics)
+
+    def _advance(self, qpos_in, qvel_in, time, episode_start, action):
+        """The step's body on its input tensors: ``(out, metrics)``, ``out``
+        the new ``qpos``, ``qvel``, ``time``, ``obs``, ``reward``, ``done``
+        and the quarantine's mask ``bad``."""
         c = self.config
         with trace_annotation("vec/targets"):
             if c.action_mode == "torque":
                 u = action if self._mask is None else action * self._mask[None]
             else:
-                u = self._target(state.qpos, state.time, action)
+                u = self._target(qpos_in, time, action)
         with trace_annotation("vec/physics"):
-            qpos, qvel, xpos, xquat, fall = self._physics(state.qpos, state.qvel, u)
-        t = state.time + c.n_substeps * c.physics_dt
+            qpos, qvel, xpos, xquat, fall = self._physics(qpos_in, qvel_in, u)
+        t = time + c.n_substeps * c.physics_dt
 
         with trace_annotation("vec/termination"):
             # NaN quarantine: a numerically poisoned env is terminated and
             # sanitised so NaNs never reach the learner or the obs statistics.
             bad = ~(torch.isfinite(qpos).all(dim=1) & torch.isfinite(qvel).all(dim=1))
-            count("vec/quarantined", bad)
             qpos = torch.where(bad[:, None], torch.nan_to_num(qpos), qpos)
             qvel = torch.where(bad[:, None], torch.nan_to_num(qvel), qvel)
             xpos = torch.nan_to_num(xpos)
@@ -392,13 +523,13 @@ class MimicVecEnv:
             if c.pose_termination > 0:
                 thr = torch.full_like(t, c.pose_termination)
                 if c.pose_termination_after_cycle > 0:
-                    survived = t - state.episode_start >= self.clip.cycle_time
+                    survived = t - episode_start >= self.clip.cycle_time
                     thr = torch.where(survived, c.pose_termination_after_cycle, thr)
                 off_pose = terms["root_err"] > thr
                 reward = torch.where(off_pose, 0.0, reward)
                 done = torch.maximum(done, off_pose.to(done.dtype))
             done = torch.maximum(
-                done, (t - state.episode_start >= c.max_episode_time).to(done.dtype))
+                done, (t - episode_start >= c.max_episode_time).to(done.dtype))
             if not self.clip.loop:
                 done = torch.maximum(done, (t >= self.clip.cycle_time).to(done.dtype))
         metrics = {
@@ -406,8 +537,8 @@ class MimicVecEnv:
             "fall": fall,
             **terms,
         }
-        return state.replace(qpos=qpos, qvel=qvel, time=t, obs=obs, reward=reward,
-                             done=done, metrics=metrics)
+        return dict(qpos=qpos, qvel=qvel, time=t, obs=obs, reward=reward, done=done,
+                    bad=bad), metrics
 
     def auto_reset(self, state: VecState, generator: Optional[torch.Generator] = None,
                    t0: Optional[torch.Tensor] = None, u: Optional[torch.Tensor] = None,

@@ -11,14 +11,17 @@ For CUDA tensors the step launches ``csrc/mimic_step.cu`` (one warp per
 env; working state and the hot index tables in shared memory), built with
 ``nvcc`` for ``sm_90a`` into ``build/pbrl_tpu_torch/`` at first use and
 bound with ``ctypes``. The kernel reads and writes the env's (B, K) rows as
-they are: no transposes. For CPU tensors it runs the plain version,
-:func:`mimic_step_plain`, built from the field program in
-:mod:`pbrl_tpu_torch.ops.field_physics`. Nothing falls back from one to
+they are: no transposes. The capability check, the library's load and the
+table's upload happen once per device, at its first launch, so a launch
+inside a CUDA graph's capture makes no other call. For CPU tensors it runs
+the plain version, :func:`mimic_step_plain`, built from the field program
+in :mod:`pbrl_tpu_torch.ops.field_physics`. Nothing falls back from one to
 the other: a build or launch failure raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -160,10 +163,29 @@ def bind(lib) -> None:
 # ---------------------------------------------------------------------------
 
 
+_captures: list = []  # the launch records of the captures under way
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Record the launches made while a CUDA graph captures: yields a list
+    that gets the :class:`MimicStep` of each launch captured in the block.
+    Replaying the graph launches each of them again; its replayer adds them
+    to their ``launches``."""
+    launched = []
+    _captures.append(launched)
+    try:
+        yield launched
+    finally:
+        _captures.remove(launched)
+
+
 class MimicStep:
     """Callable policy step for one model configuration.
 
-    ``launches`` counts kernel launches (CUDA tensors only).
+    ``launches`` counts kernel launches on the card (CUDA tensors only). A
+    launch captured into a CUDA graph is not one: it counts each time the
+    graph replays (:func:`captured_launches`).
     """
 
     def __init__(self, spec: fp.SubstepSpec):
@@ -198,16 +220,21 @@ class MimicStep:
             if not t.is_contiguous():
                 raise ValueError("inputs must be contiguous")
 
+    def _on_device(self, dev):
+        """``(library, table on dev)``: the capability checked, the library
+        loaded and the table uploaded at the first launch on ``dev``."""
+        key = str(dev)
+        if key not in self._device_tables:
+            if torch.cuda.get_device_capability(dev) != (9, 0):
+                raise RuntimeError("the kernel is built for sm_90a (Hopper)")
+            lib, _ = build_library()
+            self._device_tables[key] = (lib, torch.from_numpy(self.table).to(dev))
+        return self._device_tables[key]
+
     def _launch(self, qpos, qvel, u):
         spec = self.spec
         dev = qpos.device
-        if torch.cuda.get_device_capability(dev) != (9, 0):
-            raise RuntimeError("the kernel is built for sm_90a (Hopper)")
-        lib, _ = build_library()
-        key = str(dev)
-        if key not in self._device_tables:
-            self._device_tables[key] = torch.from_numpy(self.table).to(dev)
-        table = self._device_tables[key]
+        lib, table = self._on_device(dev)
         B = qpos.shape[0]
         nb = spec.nbody
         out = (torch.empty((B, spec.nq), dtype=torch.float32, device=dev),
@@ -223,7 +250,11 @@ class MimicStep:
                                         u.data_ptr(), *[t.data_ptr() for t in out], stream)
         if err != 0:
             raise RuntimeError(f"mimic_step launch failed: cudaError {err}")
-        self.launches += 1
+        if torch.cuda.is_current_stream_capturing():
+            if _captures:
+                _captures[-1].append(self)
+        else:
+            self.launches += 1
         return out
 
 

@@ -271,9 +271,10 @@ def test_reward_on_the_card(name):
     g = torch.Generator().manual_seed(17)
     s = env.reset(2048, g)
     action = 0.1 * torch.randn(2048, env.action_size, generator=g).cuda()
-    env.step(s, action)
+    # the step's eager body: a replayed graph of it has no vec/reward span
+    env._step(s, action)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        env.step(s, action)
+        env._step(s, action)
         torch.cuda.synchronize()
     events = prof.profiler.kineto_results.events()
     on_card = lambda e: e.device_type() == torch.autograd.DeviceType.CUDA  # noqa: E731

@@ -6,10 +6,11 @@ give each span its count and its parent, as op-scope host events (not user
 annotations); the counters equal what the states show; and a rollout under
 the profiler is bit-identical to one without it. The test marked ``gpu``
 runs on the card (``python -m pytest --noconftest -q -m gpu
-tests/test_torch_tracing.py``): the kernel's launch inside ``vec/physics``
-on the device trace's clock, no device event named as a span, the same
-launches with the spans switched off, and ``ppo.train``'s timing without a
-synchronize between rollout and learn.
+tests/test_torch_tracing.py``): the kernel's launch, a replayed graph's,
+inside ``vec/step`` on the device trace's clock (a replay has no
+``vec/physics``), no device event named as a span, the same launches with
+the spans switched off, and ``ppo.train``'s timing without a synchronize
+between rollout and learn.
 """
 
 import collections
@@ -151,7 +152,7 @@ def test_counters_equal_the_states():
     qvel[2, 0] = float("nan")
     with profile(activities=[ProfilerActivity.CPU]):
         out = env.step(s.replace(qvel=qvel), torch.zeros(4, env.action_size))
-    assert profiling.counters() == {"vec/quarantined": 1}
+    assert profiling.counters() == {"vec/quarantined": 1, "vec/steps": 1}
     assert out.done[2] == 1 and torch.isfinite(out.qvel).all()
 
 
@@ -200,15 +201,17 @@ def test_spans_on_the_device_clock(monkeypatch):
     env = _env(device="cuda", backend="kernel", policy_dt=1 / 30, max_episode_time=0.2)
     cfg = ppo.TrainConfig(**dict(SMALL, num_envs=256, unroll_length=8))
     ts = ppo.init(env, cfg, "cuda")
-    ppo.rollout(env, cfg, ts)  # builds the kernel
+    ppo.rollout(env, cfg, ts)  # builds the kernel and captures the step
     host, dev = _traced_rollout(env, cfg, ts)
-    physics = [(a, b) for n, a, b, _ in host if n == "vec/physics"]
+    steps = [(a, b) for n, a, b, _ in host if n == "vec/step"]
     kernels = [(a, c) for n, a, _, c in dev if "mimic_step_kernel" in n]
-    assert len(physics) == len(kernels) == cfg.unroll_length
-    launch_at = {c: a for n, a, _, c in host if n.startswith(LAUNCH_PREFIXES)}
+    assert len(steps) == len(kernels) == cfg.unroll_length
+    assert not [n for n, _, _, _ in host if n == "vec/physics"]
+    launch_at = {c: (n, a) for n, a, _, c in host if n.startswith(LAUNCH_PREFIXES)}
     for start, corr in kernels:
-        at = launch_at[corr]
-        (span,) = [(a, b) for a, b in physics if a <= at <= b]
+        name, at = launch_at[corr]
+        assert name == "cudaGraphLaunch"
+        (span,) = [(a, b) for a, b in steps if a <= at <= b]
         assert start > span[0]
     assert not [n for n, _, _, _ in dev if n in PARENT or "/" in n and ":" not in n]
     launches_on = sum(n.startswith(LAUNCH_PREFIXES) for n, _, _, _ in host)

@@ -577,6 +577,7 @@ def train_phase(dev, smi, model, clip):
 
     from pbrl_tpu_torch import cli
     from pbrl_tpu_torch.envs import EnvConfig, MimicVecEnv
+    from pbrl_tpu_torch.envs import humanoid_task as task
     from pbrl_tpu_torch.ops import mimic_kernel
     from pbrl_tpu_torch.train import (checkpoint, evaluate, networks, optim, ppo,
                                       running_stats)
@@ -642,7 +643,7 @@ def train_phase(dev, smi, model, clip):
                 break
         q, v, tf, obs = (torch.cat(x)[:FALL_ENVS].contiguous() for x in falls)
         mean, _ = ts.policy(running_stats.normalize(ts.obs_stats, obs))
-        u = env._target(q, tf, mean).contiguous()
+        u = task.pd_target(env.clip, env.config, tf, mean, env.tables).contiguous()
     check(q.shape[0] == FALL_ENVS, f"only {q.shape[0]} envs fell in {FALL_STEPS} steps")
     sp = env._kspec
     plain = lambda a, b, c: mimic_kernel.mimic_step_plain(sp, a, b, c)
@@ -654,7 +655,7 @@ def train_phase(dev, smi, model, clip):
     st = ts.env_state
     with torch.no_grad():
         mean, _ = ts.policy(running_stats.normalize(ts.obs_stats, st.obs))
-        u_run = env._target(st.qpos, st.time, mean).contiguous()
+        u_run = task.pd_target(env.clip, env.config, st.time, mean, env.tables).contiguous()
     r_run = compare(ks, plain, st.qpos, st.qvel, u_run, steps=2)
     log("check train-shape", f"{cfg.num_envs} envs, the rollout's final states (the training "
         f"launches' shape), 2 steps: {fmt(r_run)}")
@@ -941,7 +942,9 @@ def engine_phase(dev, smi, model, clip, walk_metrics):
 
     from pbrl_tpu_torch.bench import backends_agree
     from pbrl_tpu_torch.cli import _env_config
+    from pbrl_tpu_torch.engine.data import make_data
     from pbrl_tpu_torch.envs import EnvConfig, MimicVecEnv
+    from pbrl_tpu_torch.envs import humanoid_task as task
     from pbrl_tpu_torch.ops import mimic_kernel
     from pbrl_tpu_torch.train import checkpoint, evaluate, ppo, running_stats
     from pbrl_tpu_torch.utils.configio import dict_to_config
@@ -1018,7 +1021,10 @@ def engine_phase(dev, smi, model, clip, walk_metrics):
             mean, _ = policy(running_stats.normalize(stats, st.obs))
             st = henv.step(st, mean)
         mean, _ = policy(running_stats.normalize(stats, st.obs))
-        tau = henv._held_tau(st.qpos, st.qvel, henv._target(st.qpos, st.time, mean))
+        held_tau = lambda target: task.held_torque(  # noqa: E731
+            henv.model, henv.config, make_data(henv.model, qpos=st.qpos, qvel=st.qvel),
+            target, henv.tables)
+        tau = held_tau(task.pd_target(henv.clip, henv.config, st.time, mean, henv.tables))
     q, v, tau = (x.contiguous() for x in (st.qpos, st.qvel, tau))
     ks, sp = henv._kstep, henv._kspec
     check(sp.mode == "torque", f"the held-pd kernel spec is in mode {sp.mode}")
@@ -1038,9 +1044,9 @@ def engine_phase(dev, smi, model, clip, walk_metrics):
             f"bound {torque_bound[n]:.5f} ms ({by}) | {smi}")
     t = time.perf_counter()
     for _ in range(5):
-        henv._held_tau(st.qpos, st.qvel, mean)
+        held_tau(mean)
     torch.cuda.synchronize()
-    log("held-pd tau", f"_held_tau at B={n_time}: {(time.perf_counter() - t) / 5 * 1e3:.2f} ms "
+    log("held-pd tau", f"held_torque at B={n_time}: {(time.perf_counter() - t) / 5 * 1e3:.2f} ms "
         f"(host clock) | {smi}")
     shutil.rmtree(held_dir, ignore_errors=True)
 
@@ -1206,7 +1212,8 @@ def apg_phase(dev, smi, model):
     import torch
 
     from pbrl_tpu_torch.envs import EnvConfig, MimicVecEnv, map_states
-    from pbrl_tpu_torch.mocap import load_clip
+    from pbrl_tpu_torch.envs import humanoid_task as task
+    from pbrl_tpu_torch.mocap import load_clip, reference_state
     from pbrl_tpu_torch.train import apg, checkpoint
     from pbrl_tpu_torch.utils.configio import dict_to_config, load_json_config
 
@@ -1232,7 +1239,9 @@ def apg_phase(dev, smi, model):
     cpu_env = sides["cpu"][0]
     s = cpu_env.reset(APG_GRAD_ENVS, torch.Generator().manual_seed(5))
     q_air = torch.cat([s.qpos[:, :2], s.qpos[:, 2:3] + 1.0, s.qpos[:, 3:]], 1)
-    airborne = s.replace(qpos=q_air, obs=cpu_env._obs(q_air, s.qvel, s.time))
+    airborne = s.replace(qpos=q_air, obs=task.observation(
+        cpu_env.model, cpu_env.clip, cpu_env.config, q_air, s.qvel, s.time,
+        reference_state(cpu_env.clip, s.time)[0]))
     noise = torch.randn((APG_GRAD_HORIZON, APG_GRAD_ENVS, model.nu),
                         generator=torch.Generator().manual_seed(6))
     grad_check = {}
@@ -2129,6 +2138,7 @@ def main():
 
     from pbrl_tpu_torch.cli import _env_config
     from pbrl_tpu_torch.envs import MimicVecEnv
+    from pbrl_tpu_torch.envs import humanoid_task as task
     from pbrl_tpu_torch.mocap import load_clip
     from pbrl_tpu_torch.mocap.skeleton import generate_kp_kd_gains
     from pbrl_tpu_torch.model import humanoid_model, sphere_model
@@ -2228,7 +2238,7 @@ def main():
     st = env.reset(EVAL_ENVS, gen)
     with torch.no_grad():
         act, _ = policy(running_stats.normalize(stats, st.obs))
-    u = env._target(st.qpos, st.time, act).contiguous()
+    u = task.pd_target(env.clip, env.config, st.time, act, env.tables).contiguous()
     ks, sp = env._kstep, env._kspec
     out_k = ks(st.qpos, st.qvel, u)
     again = ks(st.qpos, st.qvel, u)

@@ -90,7 +90,7 @@ def pd_section(dev):
                                         default_gains, evaluate, implicit_pd,
                                         set_trajectories)
     from pbrl_tpu_torch.engine.forward import step as engine_step
-    from pbrl_tpu_torch.envs.mimic import gains_on
+    from pbrl_tpu_torch.envs.humanoid_task import gains_on
 
     nog = humanoid_model(gravity=False, floor=False)
     table = constant_trajectories(nog.nu, 0.0, t0=1.0, tf=3.0)

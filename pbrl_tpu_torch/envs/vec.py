@@ -7,15 +7,19 @@ through ONE call of the policy-step wrapper per policy step
 the card, its plain version for tensors on the CPU). ``backend="xla"``
 keeps pbrl_tpu's name, so flags and run configs carry over; here it means
 the einsum engine (:mod:`pbrl_tpu_torch.engine`) in plain PyTorch on the
-env's device, with every controller. The reference lookup, reward terms,
-termination and observation assembly are plain PyTorch on the same device.
+env's device, with every controller. The task (reference lookup, reward,
+termination, observation, targets, start draws) is
+:mod:`~pbrl_tpu_torch.envs.humanoid_task`'s, in plain PyTorch on the same
+device; this env keeps the physics, the NaN quarantine, ``auto_reset``
+with its curriculum and the captured step.
 
 Held-torque PD (``pd_per_substep=False``, the reference's once-per-policy-
-step PD): ``_held_tau`` evaluates one Stable-PD torque per env from the
-pre-step state on the engine (``forward_smooth``, one ``(M + dt KD)``
-solve, clamp, mask), and the kernel runs in its ``torque`` mode. As in
-pbrl_tpu, the kernel backend implements implicit and Stable PD only, and
-held PD the Stable-PD law only; other combinations raise ``ValueError``.
+step PD): ``humanoid_task.held_torque`` evaluates one Stable-PD torque per
+env from the pre-step state on the engine (``forward_smooth``, one
+``(M + dt KD)`` solve, clamp, mask), and the kernel runs in its ``torque``
+mode. As in pbrl_tpu, the kernel backend implements implicit and Stable PD
+only, and held PD the Stable-PD law only; other combinations raise
+``ValueError``.
 
 Data parallelism: an env built on a :class:`~pbrl_tpu_torch.parallel.Mesh`
 of ``n`` ranks holds this rank's rows of the batch. ``reset`` takes the
@@ -28,30 +32,29 @@ peer is drawn among the alive envs of all ranks.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
-import numpy as np
 import torch
 
-from pbrl_tpu_torch.control import Gains, default_gains
-from pbrl_tpu_torch.control import pd as ctrl
+from pbrl_tpu_torch.control import Gains
 from pbrl_tpu_torch.engine.data import make_data
-from pbrl_tpu_torch.engine.forward import forward_smooth
-from pbrl_tpu_torch.engine.forward import step as engine_step
+from pbrl_tpu_torch.engine.forward import step_n
 from pbrl_tpu_torch.engine.kinematics import kinematics as run_kinematics
 from pbrl_tpu_torch.envs import humanoid_task as task
 from pbrl_tpu_torch.envs.base import EnvConfig, VecState
-from pbrl_tpu_torch.envs.mimic import env_model, gains_on, scaled_gains
-from pbrl_tpu_torch.maths import quaternion as quat
-from pbrl_tpu_torch.mocap.clip import (MotionClip, phase, reference_aux,
-                                       reference_frame_index, reference_state)
+from pbrl_tpu_torch.mocap.clip import (MotionClip, phase, reference_frame_index,
+                                       reference_state)
 from pbrl_tpu_torch.model.spec import Model
 from pbrl_tpu_torch.ops.mimic_kernel import build_mimic_step, captured_launches
 from pbrl_tpu_torch.parallel.mesh import SINGLE, Mesh
 from pbrl_tpu_torch.utils.profiling import count, trace_annotation
 
 BACKENDS = ("auto", "kernel", "xla")
+# The laws the kernel implements. Per substep both run as implicit PD, on
+# the engine too; held PD evaluates the Stable-PD law.
+KERNEL_LAWS = ("implicit_pd", "stable_pd")
 
 
 def _to(clip: MotionClip, device) -> MotionClip:
@@ -167,223 +170,56 @@ class MimicVecEnv:
         backend = "kernel" if backend == "auto" else backend
         mode = "torque" if config.action_mode == "torque" else "pd"
         self._held_pd = mode == "pd" and not config.pd_per_substep
-        if self._held_pd and config.controller not in ("implicit_pd", "stable_pd"):
+        if self._held_pd and config.controller not in KERNEL_LAWS:
             raise ValueError("pd_per_substep=False implements the Stable-PD law; use "
                              f"pd_per_substep=True for {config.controller!r}")
-        if backend == "kernel" and config.controller not in ("implicit_pd", "stable_pd"):
+        if backend == "kernel" and config.controller not in KERNEL_LAWS:
             raise ValueError(f"the kernel backend implements implicit/Stable PD; use "
                              f"backend='xla' for {config.controller!r}")
         self.backend = backend
         self._mode = mode
         self.device = torch.device(device)
         self.mesh = mesh or SINGLE
-        model = env_model(model, config)
+        model = task.env_model(model, config)
         self.model = model
         self.config = config
         clip = _to(clip, self.device)
         self.clip = clip if clip.ee_pos is not None else task.augment_clip(model, clip)
-        gains = scaled_gains(gains or default_gains(), config)
-        self.gains = gains
-        dev = self.device
-        kp, kd = gains.kp, gains.kd
-        self._mask = None
-        if actuator_mask is not None:
-            # For the implicit-PD law the mask folds into the gains: zero kp
-            # and kd give zero explicit torque and zero implicit diagonal.
-            mk = np.asarray(actuator_mask).astype(np.float32)
-            kp, kd = kp * mk, kd * mk
-            self._mask = torch.as_tensor(mk, device=dev)
-        self._gains_t = gains_on(gains, dev)
-        self._masked_gains_t = gains_on(Gains(kp, kd), dev)
-        allowed = config.fall_contact_bodies or ("right_ankle", "left_ankle")
+        self.tables = task.env_tables(model, config, gains, actuator_mask, self.device)
         if backend == "kernel":
+            kp, kd = (x.cpu().numpy() for x in self.tables.masked_gains)
             self._kstep, self._kspec = build_mimic_step(
                 model, kp=kp, kd=kd, n_substeps=config.n_substeps,
-                mode="torque" if self._held_pd else mode, fall_allowed_bodies=allowed,
+                mode="torque" if self._held_pd else mode,
+                fall_allowed_bodies=self.tables.fall_bodies,
                 torque_scale=config.torque_limit_scale)
-        else:
-            self._fall_mask = torch.as_tensor(task.fall_mask(model, allowed), device=dev)
-
         self._graphs = {}  # input shapes -> (owner, _StepGraph or None): see step
-        self._qposadr = torch.as_tensor(model.actuator_qposadr, device=dev)
-        rng = model.jnt_range[list(model.actuator_jntid())]  # (nu, 2) actuator order
-        self._act_lo = torch.as_tensor(rng[:, 0], device=dev)
-        self._act_hi = torch.as_tensor(rng[:, 1], device=dev)
 
-    # ------------------------------------------------------------------
     @property
     def observation_size(self) -> int:
-        n = self.model.nq + self.model.nv
-        if self.config.exclude_root_xy:
-            n -= 2
-        if self.config.include_phase:
-            n += 1
-        if self.config.include_ref_root_offset:
-            n += 2
-        if self.config.include_link_obs:
-            n += 7 * self.model.nbody
-        return n
+        return task.observation_size(self.model, self.config)
 
     @property
     def action_size(self) -> int:
         return self.model.nu
 
-    # ------------------------------------------------------------------
-    def _fk_batch(self, qpos, qvel):
-        """Body frames by the engine's kinematics (a reset state; a step
-        reuses the physics' final-pose frames)."""
-        d = run_kinematics(self.model, make_data(self.model, qpos=qpos, qvel=qvel))
-        return d.xpos, d.xquat
-
-    def _obs(self, qpos, qvel, t, xpos=None, xquat=None):
-        """The observation; the link terms take the step's body frames, or
-        the engine's kinematics when none are given (a reset state)."""
-        c = self.config
-        parts = [qpos[:, 2:] if c.exclude_root_xy else qpos, qvel]
-        if c.include_phase:
-            parts.append(phase(self.clip, t)[:, None])
-        if c.include_ref_root_offset or c.include_link_obs:
-            w, x, y, z = qpos[:, 3], qpos[:, 4], qpos[:, 5], qpos[:, 6]
-            yaw = torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
-            cy, sy = torch.cos(yaw), torch.sin(yaw)
-        if c.include_ref_root_offset:
-            # the reference's root xy in the root heading (yaw) frame
-            q_ref, _ = reference_state(self.clip, t)
-            d = q_ref[:, :2] - qpos[:, :2]
-            parts.append(torch.stack([cy * d[:, 0] + sy * d[:, 1],
-                                      -sy * d[:, 0] + cy * d[:, 1]], dim=1))
-        if c.include_link_obs:
-            if xpos is None:
-                xpos, xquat = self._fk_batch(qpos, qvel)
-            rel = xpos - qpos[:, None, :3]
-            rx = cy[:, None] * rel[..., 0] + sy[:, None] * rel[..., 1]
-            ry = -sy[:, None] * rel[..., 0] + cy[:, None] * rel[..., 1]
-            # heading-normalised orientations: q_yaw^-1 * xquat
-            h = 0.5 * yaw
-            zero = torch.zeros_like(h)
-            qh_inv = torch.stack([torch.cos(h), zero, zero, -torch.sin(h)], dim=1)
-            qrel = quat.mul(qh_inv[:, None, :], xquat)
-            parts.append(torch.cat([rx, ry, rel[..., 2], qrel.reshape(qpos.shape[0], -1)],
-                                   dim=1))
-        return torch.cat(parts, dim=1)
-
-    def _reward_batch(self, qpos, qvel, t, xpos, xquat, fall):
-        c = self.config
-        q_ref, v_ref = reference_state(self.clip, t)
-        ee_ref, com_ref = reference_aux(self.clip, t)
-
-        joint_err = task.joint_pose_errors(self.model, qpos, q_ref)  # (B, 12)
-        root_rot = quat.angle_between(quat.normalize(qpos[:, 3:7]),
-                                      quat.normalize(q_ref[:, 3:7]))
-        pose_sq = torch.sum(joint_err ** 2, dim=1) + root_rot ** 2
-        r_pose = torch.exp(-c.s_pose * pose_sq)
-        r_vel = torch.exp(-c.s_vel * torch.sum((qvel - v_ref) ** 2, dim=1))
-        ee = task.ee_positions(self.model, xpos, xquat)
-        r_ee = torch.exp(-c.s_ee * torch.sum((ee - ee_ref) ** 2, dim=(1, 2))
-                         / len(task.EE_SPECS))
-        com = task.center_of_mass(self.model, xpos, xquat)
-        r_com = torch.exp(-c.s_com * torch.sum((com - com_ref) ** 2, dim=1))
-
-        reward = c.w_pose * r_pose + c.w_vel * r_vel + c.w_ee * r_ee + c.w_com * r_com
-        if c.aerial_window:
-            # flight phase: blend toward a root-rotation and root-angular-
-            # velocity reward inside the window
-            lo, hi = c.aerial_window
-            ph = phase(self.clip, t)
-            edge = max(c.aerial_edge, 1e-6)
-            win = (torch.clamp((ph - lo) / edge, 0.0, 1.0)
-                   * torch.clamp((hi - ph) / edge, 0.0, 1.0))
-            r_root = torch.exp(-c.aerial_s_root * root_rot ** 2)
-            dw = qvel[:, 3:6] - v_ref[:, 3:6]
-            r_angvel = torch.exp(-c.aerial_s_angvel * torch.sum(dw ** 2, dim=1))
-            aerial = (c.aerial_w_pose * r_pose + c.aerial_w_root * r_root
-                      + c.aerial_w_angvel * r_angvel + c.aerial_w_com * r_com)
-            reward = (1.0 - win) * reward + win * aerial
-        if c.drift_w > 0:
-            # training-only root-xy shaping at a gentle scale
-            dxy = qpos[:, :2] - q_ref[:, :2]
-            r_drift = torch.exp(-c.drift_s * torch.sum(dxy ** 2, dim=1))
-            reward = (1.0 - c.drift_w) * reward + c.drift_w * r_drift
-        if c.early_termination:
-            reward = torch.where(fall > 0, 0.0, reward)
-        terms = {
-            "reward_pose": r_pose, "reward_vel": r_vel, "reward_ee": r_ee,
-            "reward_com": r_com, "pose_error": torch.mean(joint_err, dim=1),
-            "root_err": root_rot,
-        }
-        return reward, terms
-
-    def _target(self, qpos, t, action):
-        c = self.config
-        if c.action_mode == "residual":
-            q_ref, _ = reference_state(self.clip, t + (c.policy_dt + c.ref_target_lead))
-            action = q_ref[:, self._qposadr] + action
-        if not c.enforce_joint_limits:
-            return action
-        return torch.minimum(torch.maximum(action, self._act_lo[None]), self._act_hi[None])
-
-    # ------------------------------------------------------------------
-    def _held_tau(self, qpos, qvel, target):
-        """One Stable-PD torque per env from the pre-step state (the
-        reference's per-policy-step PD): ``forward_smooth`` on the batch, one
-        ``(M + dt KD)`` solve per env, the torque envelope, the mask."""
-        m = self.model
-        d = forward_smooth(m, make_data(m, qpos=qpos, qvel=qvel))
-        tau = ctrl.clamp_torque(m, ctrl.stable_pd(m, d, target, self._gains_t),
-                                self.config.torque_limit_scale)
-        if self._mask is not None:
-            tau = ctrl.masked_torque(tau, self._mask)
-        return tau
-
-    def _engine_qfrc_fn(self, u):
-        """The per-substep controller of the engine backend for the step's
-        targets (or torques) ``u``."""
-        c = self.config
-        if self._mode == "pd" and not self._held_pd:
-            if c.controller in ("implicit_pd", "stable_pd"):
-                return lambda mm, dd: ctrl.implicit_pd(
-                    mm, dd, u, self._masked_gains_t, clamp_scale=c.torque_limit_scale)
-            law = (ctrl.standard_pd if c.controller == "standard_pd"
-                   else ctrl.inverse_dynamics_pd)
-
-            def qfrc_fn(mm, dd):
-                tau = ctrl.clamp_torque(mm, law(mm, dd, u, self._gains_t),
-                                        c.torque_limit_scale)
-                if self._mask is not None:
-                    tau = ctrl.masked_torque(tau, self._mask)
-                return ctrl.torque_to_qfrc(mm, tau)
-
-            return qfrc_fn
-        tau = ctrl.clamp_torque(self.model, u, c.torque_limit_scale)
-        if self._mask is not None:
-            tau = ctrl.masked_torque(tau, self._mask)
-        qfrc = ctrl.torque_to_qfrc(self.model, tau)
-        return lambda mm, dd: qfrc
-
     def _physics(self, qpos, qvel, u):
         """(qpos', qvel', xpos, xquat, fall) of one policy step through the
-        kernel or the engine."""
+        kernel or the engine; the engine's fall is taken at every substep."""
+        m, c = self.model, self.config
         if self._held_pd:
-            u = self._held_tau(qpos, qvel, u)
+            u = task.held_torque(m, c, make_data(m, qpos=qpos, qvel=qvel), u, self.tables)
         if self.backend == "kernel":
             return self._kstep(qpos, qvel, u.to(torch.float32).contiguous())
-        m = self.model
-        qfrc_fn = self._engine_qfrc_fn(u)
-        d = make_data(m, qpos=qpos, qvel=qvel)
-        step_mode = m.option.self_contact_mass == "step" and d.contact.dist.shape[1] > 0
-        held, fall = None, None
-        for i in range(self.config.n_substeps):
-            if step_mode:
-                # the entry substep's own solve gives the held self-contact masses
-                d, masses = engine_step(m, d, qfrc_fn=qfrc_fn, held_self=held,
-                                        use_held=i > 0, return_self_masses=True)
-                held = masses if i == 0 else held
-            else:
-                d = engine_step(m, d, qfrc_fn=qfrc_fn)
-            f = task.detect_fall(m, d, self._fall_mask).to(torch.float32)
-            fall = f if fall is None else torch.maximum(fall, f)
+        qfrc_fn = task.engine_controller(m, c, u, self.tables,
+                                         torque=self._mode == "torque" or self._held_pd,
+                                         implicit=KERNEL_LAWS)
+        falls = []
+        d = step_n(m, make_data(m, qpos=qpos, qvel=qvel), c.n_substeps, qfrc_fn=qfrc_fn,
+                   on_substep=lambda d: falls.append(
+                       task.detect_fall(m, d, self.tables.fall_mask).to(torch.float32)))
         d = run_kinematics(m, d)
-        return d.qpos, d.qvel, d.xpos, d.xquat, fall
+        return d.qpos, d.qvel, d.xpos, d.xquat, functools.reduce(torch.maximum, falls)
 
     def reset(self, num_envs: int, generator: Optional[torch.Generator] = None,
               t0: Optional[torch.Tensor] = None) -> VecState:
@@ -401,27 +237,11 @@ class MimicVecEnv:
             return mesh.rows(fn(num_envs, *shape, generator=generator, device=gdev)).to(dev)
 
         if t0 is None:
-            if c.reference_state_init:
-                hi = self.clip.cycle_time if self.clip.loop else 0.9 * self.clip.cycle_time
-                u = draw(torch.rand)
-                if c.rsi_phase_bias > 0:
-                    u = u ** (1.0 / (1.0 + c.rsi_phase_bias))
-                elif c.rsi_phase_bias < 0:
-                    u = u ** (1.0 - c.rsi_phase_bias)
-                t0 = hi * u
-            else:
-                t0 = torch.zeros(B, device=dev)
+            t0 = task.start_times(self.clip, c, B, draw, dev)
         else:
             t0 = mesh.rows(torch.as_tensor(t0, dtype=torch.float32, device=dev))
-        qpos, qvel = reference_state(self.clip, t0)
-        if c.rsi_noise_qpos > 0 or c.rsi_noise_qvel > 0:
-            nq = draw(torch.randn, self.model.nq - 7)
-            nv = draw(torch.randn, self.model.nv)
-            qpos = torch.cat([qpos[:, :7], qpos[:, 7:] + c.rsi_noise_qpos * nq], dim=1)
-            qvel = qvel + c.rsi_noise_qvel * nv
-        if c.rsi_noise_root_xy > 0:
-            nxy = 2.0 * draw(torch.rand, 2) - 1.0
-            qpos = torch.cat([qpos[:, :2] + c.rsi_noise_root_xy * nxy, qpos[:, 2:]], dim=1)
+        q_ref, v_ref = reference_state(self.clip, t0)
+        qpos, qvel = task.reset_noise(self.model, c, q_ref, v_ref, draw)
         qpos, qvel = qpos.contiguous(), qvel.contiguous()
         zeros = torch.zeros(B, device=dev)
         metrics = {
@@ -431,8 +251,8 @@ class MimicVecEnv:
             "root_err": zeros,
         }
         return VecState(qpos=qpos, qvel=qvel, time=t0, episode_start=t0,
-                        obs=self._obs(qpos, qvel, t0), reward=zeros, done=zeros,
-                        metrics=metrics)
+                        obs=task.observation(self.model, self.clip, c, qpos, qvel, t0, q_ref),
+                        reward=zeros, done=zeros, metrics=metrics)
 
     def step(self, state: VecState, action: torch.Tensor) -> VecState:
         """One policy step of the batch.
@@ -449,10 +269,11 @@ class MimicVecEnv:
         same bits: the graph holds the same kernels on the same inputs.
 
         Spans: ``vec/step`` around it; on an eager step ``vec/targets``,
-        ``vec/physics`` (the kernel's launch, or the engine), ``vec/obs``,
-        ``vec/reward``, and ``vec/termination`` twice (the NaN quarantine
-        before the obs, ``done`` after the reward) inside it. A replay has
-        no child span. Counters: ``vec/steps`` (every call),
+        ``vec/physics`` (the kernel's launch, or the engine), ``vec/reward``
+        (with the step's one reference lookup), ``vec/obs``, and
+        ``vec/termination`` twice (the NaN quarantine before the reward,
+        ``done`` after the obs) inside it. A replay has no child span.
+        Counters: ``vec/steps`` (every call),
         ``vec/graph_replays``, ``vec/graph_captures`` and
         ``vec/quarantined``, the envs the quarantine catches."""
         with trace_annotation("vec/step"):
@@ -491,12 +312,12 @@ class MimicVecEnv:
         """The step's body on its input tensors: ``(out, metrics)``, ``out``
         the new ``qpos``, ``qvel``, ``time``, ``obs``, ``reward``, ``done``
         and the quarantine's mask ``bad``."""
-        c = self.config
+        m, clip, c, k = self.model, self.clip, self.config, self.tables
         with trace_annotation("vec/targets"):
             if c.action_mode == "torque":
-                u = action if self._mask is None else action * self._mask[None]
+                u = action if k.mask is None else action * k.mask[None]
             else:
-                u = self._target(qpos_in, time, action)
+                u = task.pd_target(clip, c, time, action, k)
         with trace_annotation("vec/physics"):
             qpos, qvel, xpos, xquat, fall = self._physics(qpos_in, qvel_in, u)
         t = time + c.n_substeps * c.physics_dt
@@ -511,34 +332,17 @@ class MimicVecEnv:
             xquat = torch.where(torch.isfinite(xquat), xquat, 1.0)
             fall = torch.maximum(fall, bad.to(fall.dtype))
 
-        with trace_annotation("vec/obs"):
-            obs = self._obs(qpos, qvel, t, xpos, xquat)
         with trace_annotation("vec/reward"):
-            reward, terms = self._reward_batch(qpos, qvel, t, xpos, xquat, fall)
+            ref = reference_state(clip, t)
+            reward, terms = task.reward(m, clip, c, qpos, qvel, t, ref, xpos, xquat, fall)
             reward = torch.where(bad, 0.0, torch.nan_to_num(reward))
+        with trace_annotation("vec/obs"):
+            obs = task.observation(m, clip, c, qpos, qvel, t, ref[0], xpos, xquat)
         with trace_annotation("vec/termination"):
-            done = torch.zeros_like(fall)
-            if c.early_termination:
-                done = torch.maximum(done, fall)
-            if c.pose_termination > 0:
-                thr = torch.full_like(t, c.pose_termination)
-                if c.pose_termination_after_cycle > 0:
-                    survived = t - episode_start >= self.clip.cycle_time
-                    thr = torch.where(survived, c.pose_termination_after_cycle, thr)
-                off_pose = terms["root_err"] > thr
-                reward = torch.where(off_pose, 0.0, reward)
-                done = torch.maximum(done, off_pose.to(done.dtype))
-            done = torch.maximum(
-                done, (t - episode_start >= c.max_episode_time).to(done.dtype))
-            if not self.clip.loop:
-                done = torch.maximum(done, (t >= self.clip.cycle_time).to(done.dtype))
-        metrics = {
-            "step_index": reference_frame_index(self.clip, t).to(torch.float32),
-            "fall": fall,
-            **terms,
-        }
+            reward, done = task.termination(clip, c, t, episode_start, fall, terms["root_err"],
+                                            reward)
         return dict(qpos=qpos, qvel=qvel, time=t, obs=obs, reward=reward, done=done,
-                    bad=bad), metrics
+                    bad=bad), task.step_metrics(clip, t, fall, terms)
 
     def auto_reset(self, state: VecState, generator: Optional[torch.Generator] = None,
                    t0: Optional[torch.Tensor] = None, u: Optional[torch.Tensor] = None,
@@ -614,6 +418,8 @@ class MimicVecEnv:
         qvel0 = torch.where(use[:, None], all_v[peer], fresh.qvel)
         t_peer = all_t[peer]
         t0 = torch.where(use, t_peer, fresh.time)
+        obs = task.observation(self.model, self.clip, c, qpos0, qvel0, t0,
+                               reference_state(self.clip, t0)[0])
         return fresh.replace(qpos=qpos0, qvel=qvel0, time=t0,
                              episode_start=torch.where(use, t_peer, fresh.episode_start),
-                             obs=self._obs(qpos0, qvel0, t0))
+                             obs=obs)

@@ -33,6 +33,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke as smoke  # noqa: E402
 from pbrl_tpu_torch.envs import EnvConfig, MimicVecEnv  # noqa: E402
+from pbrl_tpu_torch.envs import humanoid_task as task  # noqa: E402
 from pbrl_tpu_torch.mocap import load_clip  # noqa: E402
 from pbrl_tpu_torch.model import humanoid_model  # noqa: E402
 from pbrl_tpu_torch.ops import field_physics as fp  # noqa: E402
@@ -105,7 +106,7 @@ def main():
     st = ts.env_state
     with torch.no_grad():
         mean, _ = ts.policy(running_stats.normalize(ts.obs_stats, st.obs))
-        u = env._target(st.qpos, st.time, mean).contiguous()
+        u = task.pd_target(env.clip, env.config, st.time, mean, env.tables).contiguous()
     ks, sp = env._kstep, env._kspec
     plain = lambda a, b, c: mimic_kernel.mimic_step_plain(sp, a, b, c)
     smoke.log("train-shape", smoke.fmt(smoke.compare(ks, plain, st.qpos, st.qvel, u, steps=2)))

@@ -54,6 +54,7 @@ def score(env, steps: int):
     (shifts, steps), terms {name: (shifts, steps)})."""
     import torch
 
+    from pbrl_tpu_torch.envs import humanoid_task as task
     from pbrl_tpu_torch.mocap import reference_state
 
     rows = shifts(env.config, env.clip)
@@ -64,8 +65,10 @@ def score(env, steps: int):
                             device=dev)
     with torch.no_grad():
         q, v = reference_state(env.clip, t_ref)
-        xpos, xquat = env._fk_batch(q, v)
-        r, terms = env._reward_batch(q, v, t_score, xpos, xquat, torch.zeros_like(t_score))
+        xpos, xquat = task.body_frames(env.model, q, v)
+        r, terms = task.reward(env.model, env.clip, env.config, q, v, t_score,
+                               reference_state(env.clip, t_score), xpos, xquat,
+                               torch.zeros_like(t_score))
     return rows, r.reshape(len(rows), steps), {k: x.reshape(len(rows), steps)
                                                for k, x in terms.items()}
 

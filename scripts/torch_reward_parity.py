@@ -81,6 +81,7 @@ def mujoco_rollout(env, policy, stats, steps: int, perturb: float = 0.0):
     import mujoco
     import torch
 
+    from pbrl_tpu_torch.envs import humanoid_task as task
     from pbrl_tpu_torch.mocap.clip import reference_state
     from pbrl_tpu_torch.model import humanoid_spec, to_mjcf
 
@@ -97,8 +98,8 @@ def mujoco_rollout(env, policy, stats, steps: int, perturb: float = 0.0):
 
     dofadr = np.asarray(m.actuator_dofadr)
     qposadr = np.asarray(m.actuator_qposadr)
-    kp = np.asarray(env.gains.kp, np.float64)
-    kd = np.asarray(env.gains.kd, np.float64)
+    kp = np.asarray(env.tables.gains.kp.cpu(), np.float64)
+    kd = np.asarray(env.tables.gains.kd.cpu(), np.float64)
     gear = np.asarray(m.actuator_gear, np.float64)
     cr = np.asarray(m.actuator_ctrlrange, np.float64)
     tau_lo = gear * cr[:, 0] * cfg.torque_limit_scale
@@ -129,7 +130,9 @@ def mujoco_rollout(env, policy, stats, steps: int, perturb: float = 0.0):
     rewards, qpos_hist = [], []
     t = 0.0
     for _ in range(steps):
-        obs = env._obs(f32(data.qpos), f32(data.qvel), f32([t])[0])
+        tt = f32([t])[0]
+        obs = task.observation(m, env.clip, cfg, f32(data.qpos), f32(data.qvel), tt,
+                               reference_state(env.clip, tt)[0])
         action = _mean_action(policy, stats, obs)[0].double().numpy()
         if cfg.action_mode == "residual":
             q_ref, _ = reference_state(env.clip, f32([t + cfg.policy_dt + cfg.ref_target_lead])[0])
@@ -142,8 +145,10 @@ def mujoco_rollout(env, policy, stats, steps: int, perturb: float = 0.0):
             mujoco.mj_step(mj, data)
         t += cfg.n_substeps * dt
         with torch.no_grad():
-            r, _ = env._reward_batch(f32(data.qpos), f32(data.qvel), f32([t])[0],
-                                     f32(data.xpos[1:]), f32(data.xquat[1:]), torch.zeros(1))
+            tt = f32([t])[0]
+            r, _ = task.reward(m, env.clip, cfg, f32(data.qpos), f32(data.qvel), tt,
+                               reference_state(env.clip, tt), f32(data.xpos[1:]),
+                               f32(data.xquat[1:]), torch.zeros(1))
         rewards.append(float(r[0]))
         qpos_hist.append(np.asarray(data.qpos).copy())
     return np.asarray(rewards), np.asarray(qpos_hist)
@@ -154,11 +159,16 @@ def our_rollout(env, policy, stats, steps: int, perturb: float = 0.0):
     start (the same start perturbation as :func:`mujoco_rollout`)."""
     import torch
 
+    from pbrl_tpu_torch.envs import humanoid_task as task
+    from pbrl_tpu_torch.mocap.clip import reference_state
+
     s = env.reset(1)
     if perturb:
         qpos = s.qpos.clone()
         qpos[:, 7] += perturb
-        s = s.replace(qpos=qpos, obs=env._obs(qpos, s.qvel, s.time))
+        obs = task.observation(env.model, env.clip, env.config, qpos, s.qvel, s.time,
+                               reference_state(env.clip, s.time)[0])
+        s = s.replace(qpos=qpos, obs=obs)
     rew, qpos = [], []
     with torch.no_grad():
         for _ in range(steps):

@@ -3,11 +3,12 @@
 The four PD laws, ``clamp_torque``, ``masked_torque`` and
 ``torque_to_qfrc`` run on the same ``forward_smooth`` data (pbrl_tpu's,
 vmapped and jitted once, converted for the port) and the same targets;
-``MimicVecEnv._held_tau`` (forward_smooth, one Stable-PD solve per env,
-clamp, mask) against pbrl_tpu's on 4 envs. Tolerances: torques 1e-5 of the
-largest (standard PD 1e-6: no solve; Stable and inverse-dynamics PD go
-through the mass matrix, and Stable PD through a 34x34 solve), the held
-torque 1e-4 relative as asked of it; trajectories 1e-6.
+``humanoid_task.held_torque`` with ``MimicVecEnv``'s tables (forward_smooth,
+one Stable-PD solve per env, clamp, mask) against pbrl_tpu's ``_held_tau``
+on 4 envs. Tolerances: torques 1e-5 of the largest (standard PD 1e-6: no
+solve; Stable and inverse-dynamics PD go through the mass matrix, and
+Stable PD through a 34x34 solve), the held torque 1e-4 relative as asked
+of it; trajectories 1e-6.
 """
 
 import sys
@@ -26,7 +27,9 @@ from pbrl_tpu.envs import MimicVecEnv as JMimicVecEnv
 from pbrl_tpu.mocap import clip as jclip
 from pbrl_tpu.model import humanoid_model as j_humanoid
 from pbrl_tpu_torch import control as tctrl
+from pbrl_tpu_torch.engine.data import make_data
 from pbrl_tpu_torch.envs import EnvConfig, MimicVecEnv
+from pbrl_tpu_torch.envs import humanoid_task as task
 from pbrl_tpu_torch.envs.humanoid_task import augment_clip
 from pbrl_tpu_torch.mocap import load_clip
 from pbrl_tpu_torch.model import humanoid_model
@@ -98,7 +101,7 @@ def test_trajectories_match_jax():
 
 
 def test_held_tau_matches_jax():
-    """``_held_tau`` on 4 envs at 1e-4 relative of the largest torque, with
+    """The held torque on 4 envs at 1e-4 relative of the largest torque, with
     an actuator mask (pbrl_tpu's env with the same mask) and without it
     (held against the same torques where the mask lets them through)."""
     walk = augment_clip(humanoid_model(), load_clip("walk", device="cpu"))
@@ -113,7 +116,8 @@ def test_held_tau_matches_jax():
     for m in (mask, None):
         tenv = MimicVecEnv(humanoid_model(), walk, EnvConfig(pd_per_substep=False),
                            actuator_mask=m, device="cpu")
-        got = tenv._held_tau(*args)
+        data = make_data(tenv.model, qpos=args[0], qvel=args[1])
+        got = task.held_torque(tenv.model, tenv.config, data, args[2], tenv.tables)
         if m is None:
             got = got[:, mask]
         scaled(got, want if m is not None else want[:, mask], 1e-4)

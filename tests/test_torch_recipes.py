@@ -32,6 +32,7 @@ from pbrl_tpu.utils.configio import config_to_dict as j_config_to_dict
 from pbrl_tpu.utils.configio import dict_to_config as j_dict_to_config
 from pbrl_tpu_torch import cli
 from pbrl_tpu_torch.envs import EnvConfig, MimicVecEnv, VecState
+from pbrl_tpu_torch.envs import humanoid_task as task
 from pbrl_tpu_torch.envs.humanoid_task import augment_clip
 from pbrl_tpu_torch.mocap import load_clip, reference_state
 from pbrl_tpu_torch.model import humanoid_model
@@ -148,16 +149,23 @@ def test_obs_root_offset_and_links_match(link_envs):
     t = np.random.default_rng(0).uniform(0.0, 2.0 * 1.75, B).astype(np.float32)
     q, v = _states("backflip", B, 1, t)
     assert tenv.observation_size == jenv.observation_size == 70 + 7 * 13
-    xpos, xquat = (x.numpy() for x in tenv._fk_batch(torch.from_numpy(q), torch.from_numpy(v)))
+    xpos, xquat = (x.numpy() for x in task.body_frames(tenv.model, torch.from_numpy(q),
+                                                        torch.from_numpy(v)))
     rng = np.random.default_rng(2)
     xpos = (xpos + rng.normal(0, 0.01, xpos.shape)).astype(np.float32)
     xquat = (xquat + rng.normal(0, 0.01, xquat.shape)).astype(np.float32)
     jobs = jax.jit(jenv._obs)
+    q_ref = reference_state(tenv.clip, torch.from_numpy(t))[0]
+
+    def obs(*frames):
+        qq, vv, tt, *fr = (torch.from_numpy(x) for x in (q, v, t) + frames)
+        return task.observation(tenv.model, tenv.clip, tenv.config, qq, vv, tt, q_ref,
+                                *fr).numpy()
+
     want = np.asarray(jobs(q, v, t, xpos=xpos, xquat=xquat))
-    got = tenv._obs(*(torch.from_numpy(x) for x in (q, v, t, xpos, xquat))).numpy()
-    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(obs(xpos, xquat), want, atol=1e-6, rtol=0)
     want = np.asarray(jobs(q, v, t))
-    got = tenv._obs(*(torch.from_numpy(x) for x in (q, v, t))).numpy()
+    got = obs()
     np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
 
 
@@ -176,11 +184,13 @@ def test_reward_aerial_and_drift_match(falls):
     t = (ph * 1.75).astype(np.float32)
     B = t.shape[0]
     q, v = _states("backflip", B, 3, t)
-    xpos, xquat = (x.numpy() for x in tenv._fk_batch(torch.from_numpy(q), torch.from_numpy(v)))
+    xpos, xquat = (x.numpy() for x in task.body_frames(tenv.model, torch.from_numpy(q),
+                                                        torch.from_numpy(v)))
     fall = (np.zeros(B) if falls == "none" else np.arange(B) % 3 == 0).astype(np.float32)
     want_r, want_terms = jax.jit(jenv._reward_batch)(q, v, t, xpos, xquat, fall)
-    got_r, got_terms = tenv._reward_batch(*(torch.from_numpy(x)
-                                            for x in (q, v, t, xpos, xquat, fall)))
+    qq, vv, tt, xp, xq, ff = (torch.from_numpy(x) for x in (q, v, t, xpos, xquat, fall))
+    got_r, got_terms = task.reward(tenv.model, tenv.clip, tenv.config, qq, vv, tt,
+                                   reference_state(tenv.clip, tt), xp, xq, ff)
     np.testing.assert_allclose(_np(got_r), np.asarray(want_r), atol=1e-6, rtol=4e-6)
     assert set(got_terms) == set(want_terms)
     for k in got_terms:

@@ -6,8 +6,8 @@ with its constant tables built once per model, device and dtype. The loop
 over the 12 mocap joints that it replaced, and the reward formula around it
 (with per-call host tables for the end-effectors and the centre of mass),
 are kept here as the oracle: the batched pass, its gradients through
-``angle_between``'s custom backward, ``MimicVecEnv._reward_batch``'s reward
-and terms, and a whole env step (obs, reward, done, metrics) must equal them
+``angle_between``'s custom backward, ``humanoid_task.reward``'s reward and
+terms, and a whole env step (obs, reward, done, metrics) must equal them
 bit for bit. The test marked ``gpu`` runs on the card (``python -m pytest
 --noconftest -q -m gpu tests/test_torch_reward_batch.py``): the same
 equality at 2048 envs, and the ``vec/reward`` span under ``torch.profiler``
@@ -197,13 +197,19 @@ def _states(env, B, seed):
     qpos = s.qpos + 0.3 * torch.randn(s.qpos.shape, generator=g).to(dev)
     qvel = s.qvel + torch.randn(s.qvel.shape, generator=g).to(dev)
     t = torch.rand(B, generator=g).to(dev) * 2.0 * float(env.clip.cycle_time)
-    xpos, xquat = env._fk_batch(qpos, qvel)
+    xpos, xquat = task.body_frames(env.model, qpos, qvel)
     fall = (torch.rand(B, generator=g) < 0.5).to(torch.float32).to(dev)
     return qpos, qvel, t, xpos, xquat, fall
 
 
+def _reward(env, qpos, qvel, t, xpos, xquat, fall):
+    """The task's reward of ``env`` with the reference looked up at ``t``."""
+    return task.reward(env.model, env.clip, env.config, qpos, qvel, t,
+                       reference_state(env.clip, t), xpos, xquat, fall)
+
+
 def _assert_reward_equal(env, args):
-    reward, terms = env._reward_batch(*args)
+    reward, terms = _reward(env, *args)
     want_reward, want_terms = _loop_reward_batch(env, *args)
     assert torch.equal(reward, want_reward)
     assert terms.keys() == want_terms.keys()
@@ -216,7 +222,7 @@ def test_reward_batch_equals_the_loop(name):
     env = _env(name)
     args = _states(env, 64, seed=11)
     _assert_reward_equal(env, args)
-    reward = env._reward_batch(*args)[0]
+    reward = _reward(env, *args)[0]
     if name == "backflip":  # the aerial window and the drift term are live
         ph = phase(env.clip, args[2])
         assert bool(((ph > 0.3) & (ph < 0.47)).any())
@@ -234,7 +240,8 @@ def test_step_equals_the_loop(name, monkeypatch):
     action = 0.1 * torch.randn(8, env.action_size, generator=g)
     out = env.step(s, action)
     monkeypatch.setattr(quat, "conj", _conj)
-    monkeypatch.setattr(env, "_reward_batch", lambda *a: _loop_reward_batch(env, *a))
+    monkeypatch.setattr(task, "reward", lambda m, clip, c, q, v, t, ref, *a:
+                        _loop_reward_batch(env, q, v, t, *a))
     want = env.step(s, action)
     for f in ("qpos", "qvel", "time", "obs", "reward", "done"):
         assert torch.equal(getattr(out, f), getattr(want, f)), f
@@ -265,7 +272,7 @@ def test_reward_on_the_card(name):
     env = _env(name, device="cuda", backend="kernel")
     args = _states(env, 2048, seed=13)
     _assert_reward_equal(env, args)
-    env._reward_batch(*args)  # tables built
+    _reward(env, *args)  # tables built
     torch.cuda.synchronize()
 
     g = torch.Generator().manual_seed(17)

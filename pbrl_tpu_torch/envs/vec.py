@@ -11,7 +11,8 @@ env's device, with every controller. The task (reference lookup, reward,
 termination, observation, targets, start draws) is
 :mod:`~pbrl_tpu_torch.envs.humanoid_task`'s, in plain PyTorch on the same
 device; this env keeps the physics, the NaN quarantine, ``auto_reset``
-with its curriculum and the captured step.
+with its curriculum, and the step and ``auto_reset`` captured as CUDA
+graphs.
 
 Held-torque PD (``pd_per_substep=False``, the reference's once-per-policy-
 step PD): ``humanoid_task.held_torque`` evaluates one Stable-PD torque per
@@ -32,6 +33,7 @@ peer is drawn among the alive envs of all ranks.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Optional
@@ -101,15 +103,17 @@ def _unpack(block, layout, shapes):
     return [block[at:at + n].view(shape) for (at, n), shape in zip(layout, shapes)]
 
 
-class _StepGraph:
-    """:meth:`MimicVecEnv._advance` captured as one CUDA graph for one shape
-    of inputs. A replay copies the inputs into the graph's packed input block
-    (one ``cat``), replays, and clones its packed output block (one copy);
-    the outputs are views of that clone, so no tensor a caller holds is ever
-    written again. Each kernel launch the graph holds is added to its
+class _Graph:
+    """``body`` captured as one CUDA graph for one shape of inputs. ``body``
+    takes the inputs' views in the graph's packed input block and returns
+    dicts of tensors, each kept as float32 in its packed output block. A
+    replay copies the inputs into the input block (one ``cat``), replays,
+    and clones the output block (one copy): the outputs, dicts of the
+    body's keys, are views of that clone, so no tensor a caller holds is
+    ever written again. Each kernel launch the graph holds is added to its
     wrapper's ``launches`` at every replay."""
 
-    def __init__(self, env: "MimicVecEnv", inputs):
+    def __init__(self, body, inputs):
         dev = inputs[0].device
         shapes = [x.shape for x in inputs]
         self._in_layout, size = _layout(shapes)
@@ -124,28 +128,73 @@ class _StepGraph:
         with torch.no_grad(), captured_launches() as launched, torch.cuda.stream(side):
             self._graph.capture_begin()
             try:
-                out, metrics = env._advance(*static)
-                out["bad"] = out["bad"].to(torch.float32)
-                outs = list(out.values()) + list(metrics.values())  # all float32
+                groups = body(*static)
+                outs = [x.to(torch.float32) for g in groups for x in g.values()]
                 self._shapes = [x.shape for x in outs]
                 self._out_layout, size = _layout(self._shapes)
                 self._out = _pack(outs, _fillers(self._out_layout, size, dev))
             finally:
                 self._graph.capture_end()
         self._launched = launched
-        self._names, self._metric_names = list(out), list(metrics)
+        self._keys = [list(g) for g in groups]
 
-    def replay(self, state: VecState, action: torch.Tensor) -> VecState:
-        _pack((state.qpos, state.qvel, state.time, state.episode_start, action),
-              self._in_fill, out=self._in)
+    def replay(self, inputs):
+        _pack(inputs, self._in_fill, out=self._in)
         self._graph.replay()
         for kstep in self._launched:
             kstep.launches += 1
-        views = _unpack(self._out.clone(), self._out_layout, self._shapes)
-        n = len(self._names)
-        out = dict(zip(self._names, views[:n]))
-        count("vec/quarantined", out.pop("bad"))
-        return state.replace(**out, metrics=dict(zip(self._metric_names, views[n:])))
+        views = iter(_unpack(self._out.clone(), self._out_layout, self._shapes))
+        return tuple({k: next(views) for k in keys} for keys in self._keys)
+
+
+def _capturable(inputs) -> bool:
+    """Inputs a graph can take: float32 tensors on the card, none of them
+    needing a gradient."""
+    return (inputs[0].is_cuda and all(x.dtype == torch.float32 for x in inputs)
+            and not (torch.is_grad_enabled() and any(x.requires_grad for x in inputs)))
+
+
+@dataclasses.dataclass
+class _Entry:
+    """One shape of inputs' graph: its owner, the draws its eager first
+    call made (:class:`_Draws`' plan; empty for the step, which draws
+    nothing), and the graph once captured."""
+
+    owner: tuple
+    plan: Optional[list] = None
+    graph: Optional[_Graph] = None
+
+
+def _entry(entries: dict, inputs, owner: tuple) -> _Entry:
+    """The entry of ``entries`` for these inputs' shapes and device; a fresh
+    one where there is none or its owner differs (compared by identity)."""
+    key = tuple(tuple(x.shape) for x in inputs) + (inputs[0].device,)
+    found = entries.get(key)
+    if found is None or any(a is not b for a, b in zip(found.owner, owner)):
+        found = entries[key] = _Entry(owner)
+    return found
+
+
+class _Draws:
+    """A reset's random draws for the whole batch of ``n`` envs from
+    ``generator`` (its device's default one when None), moved to
+    ``device``: ``draws(fn, *shape)`` is ``fn``'s draw of shape
+    ``(n, *shape)``, this rank's rows of it unless ``rows`` is False.
+    ``plan`` records each call, ``(fn, shape, rows)``, in order; ``take``
+    makes a plan's calls again."""
+
+    def __init__(self, n: int, generator: Optional[torch.Generator], device, mesh: Mesh):
+        self.n, self.generator, self.device, self.mesh = n, generator, device, mesh
+        self.plan = []
+
+    def __call__(self, fn, *shape, rows: bool = True) -> torch.Tensor:
+        self.plan.append((fn, shape, rows))
+        gdev = self.generator.device if self.generator is not None else self.device
+        x = fn(self.n, *shape, generator=self.generator, device=gdev)
+        return (self.mesh.rows(x) if rows else x).to(self.device)
+
+    def take(self, plan) -> list:
+        return [self(fn, *shape, rows=rows) for fn, shape, rows in plan]
 
 
 class MimicVecEnv:
@@ -193,7 +242,8 @@ class MimicVecEnv:
                 mode="torque" if self._held_pd else mode,
                 fall_allowed_bodies=self.tables.fall_bodies,
                 torque_scale=config.torque_limit_scale)
-        self._graphs = {}  # input shapes -> (owner, _StepGraph or None): see step
+        self._graphs = {}        # input shapes -> _Entry of the step's graph: see step
+        self._reset_graphs = {}  # the same for auto_reset's graph
 
     @property
     def observation_size(self) -> int:
@@ -227,15 +277,15 @@ class MimicVecEnv:
         times come from ``t0`` (num_envs,) when given (shared with another
         implementation in tests), else from RSI draws of ``generator``;
         reset noise is drawn from ``generator``."""
+        return self._fresh(num_envs, _Draws(num_envs, generator, self.device, self.mesh), t0)
+
+    def _fresh(self, num_envs: int, draw, t0: Optional[torch.Tensor]) -> VecState:
+        """:meth:`reset` with its draws from ``draw`` (a :class:`_Draws`, or
+        a plan's draws taken in order)."""
         c = self.config
         mesh = self.mesh
         B = mesh.local(num_envs)
         dev = self.device
-
-        def draw(fn, *shape):  # the whole batch's draw; this rank's rows of it
-            gdev = generator.device if generator is not None else dev
-            return mesh.rows(fn(num_envs, *shape, generator=generator, device=gdev)).to(dev)
-
         if t0 is None:
             t0 = task.start_times(self.clip, c, B, draw, dev)
         else:
@@ -258,7 +308,7 @@ class MimicVecEnv:
         """One policy step of the batch.
 
         On the card the step replays one CUDA graph of its body
-        (:class:`_StepGraph`) when the backend is the kernel, the PD is
+        (:class:`_Graph`) when the backend is the kernel, the PD is
         per substep (held PD runs the engine's solve, which copies from the
         host), the five inputs are float32 and none needs a gradient. The
         first call for a shape of inputs runs eagerly (it loads the
@@ -282,25 +332,25 @@ class MimicVecEnv:
             if graph is None:
                 return self._step(state, action)
             count("vec/graph_replays", 1)
-            return graph.replay(state, action)
+            out, metrics = graph.replay((state.qpos, state.qvel, state.time,
+                                         state.episode_start, action))
+            count("vec/quarantined", out.pop("bad"))
+            return state.replace(**out, metrics=metrics)
 
     def _graph(self, state: VecState, action: torch.Tensor):
         """The captured step for these inputs, or None to run eagerly."""
         inputs = (state.qpos, state.qvel, state.time, state.episode_start, action)
-        if (self.backend != "kernel" or self._held_pd or not state.qpos.is_cuda
-                or any(x.dtype != torch.float32 for x in inputs)
-                or torch.is_grad_enabled() and any(x.requires_grad for x in inputs)):
+        if self.backend != "kernel" or self._held_pd or not _capturable(inputs):
             return None
-        key = tuple(tuple(x.shape) for x in inputs) + (state.qpos.device,)
         owner = (self._kstep, getattr(self._physics, "__func__", self._physics), self.config)
-        found = self._graphs.get(key)
-        if found is None or any(a is not b for a, b in zip(found[0], owner)):
-            self._graphs[key] = (owner, None)  # this key's eager first call
+        found = _entry(self._graphs, inputs, owner)
+        if found.plan is None:
+            found.plan = []  # this key's eager first call
             return None
-        if found[1] is None:
-            found = self._graphs[key] = (owner, _StepGraph(self, inputs))
+        if found.graph is None:
+            found.graph = _Graph(self._advance, inputs)
             count("vec/graph_captures", 1)
-        return found[1]
+        return found.graph
 
     def _step(self, state: VecState, action: torch.Tensor) -> VecState:
         out, metrics = self._advance(state.qpos, state.qvel, state.time, state.episode_start,
@@ -354,62 +404,120 @@ class MimicVecEnv:
         probability p from the state of a peer drawn uniformly among the
         alive envs of the whole batch (in ``curriculum_phase_window``, when
         set); ``u`` and ``peer`` (both of the whole batch's size) replace
-        those draws of ``generator`` when given. Spans: ``vec/auto_reset``
-        around it; ``vec/reset`` (the fresh draw) and ``vec/curriculum``.
-        Counters: ``vec/resets`` (the envs restarted), ``vec/fresh_states``
-        (the fresh states made, however few envs are done) and
-        ``vec/curriculum_restarts`` (the envs restarted from a peer)."""
+        those draws of ``generator`` when given.
+
+        On the card the body (:meth:`_renew`: the fresh states, the
+        curriculum, the selection of the done envs) replays one CUDA graph
+        (:class:`_Graph`) when the state is float32 and needs no gradient,
+        one rank holds the whole batch (with more, the curriculum's gather
+        is a collective), ``t0``, ``u`` and ``peer`` are not given and the
+        observation has no link terms (their kinematics copy from the
+        host). The graph holds no generator: before each replay the
+        generator makes the calls the key's eager first call made, in its
+        order, and the graph takes their results as inputs, so the
+        generator ends where the eager body leaves it. As for the step, the
+        first call for a shape of inputs runs eagerly, the second captures,
+        later ones replay; a swapped ``config`` starts over. Everything
+        else runs the body eagerly, with the same bits.
+
+        Spans: ``vec/auto_reset`` around it; on an eager call ``vec/reset``
+        (the fresh draw) and ``vec/curriculum`` inside it. Counters:
+        ``vec/auto_resets`` (every call), ``vec/reset_replays``,
+        ``vec/reset_captures``, ``vec/resets`` (the envs restarted),
+        ``vec/fresh_states`` (the fresh states made, however few envs are
+        done) and ``vec/curriculum_restarts`` (the envs restarted from a
+        peer)."""
         with trace_annotation("vec/auto_reset"):
-            B = state.done.shape[0] * self.mesh.world  # the whole batch
-            with trace_annotation("vec/reset"):
-                fresh = self.reset(B, generator, t0=t0)
+            count("vec/auto_resets", 1)
             count("vec/fresh_states", state.done.shape[0])
-            if self.config.curriculum_reset_prob > 0:
-                with trace_annotation("vec/curriculum"):
-                    fresh = self._curriculum(state, fresh, generator, u, peer)
-            d = state.done.to(torch.bool)
             count("vec/resets", state.done)
+            inputs = (state.qpos, state.qvel, state.time, state.episode_start, state.obs,
+                      state.done)
+            draw = _Draws(state.done.shape[0] * self.mesh.world, generator, self.device,
+                          self.mesh)
+            found = self._reset_graph(inputs, t0, u, peer)
+            if found is None or found.plan is None:
+                out, curriculum = self._renew(*inputs, draw, t0=t0, u=u, peer=peer)
+                if found is not None:  # this key's eager first call
+                    found.plan = draw.plan
+            else:
+                inputs += tuple(draw.take(found.plan))
+                if found.graph is None:
+                    found.graph = _Graph(self._renew_drawn, inputs)
+                    count("vec/reset_captures", 1)
+                count("vec/reset_replays", 1)
+                out, curriculum = found.graph.replay(inputs)
+            if curriculum:
+                count("vec/curriculum_restarts", curriculum["use"], where=state.done)
+            return state.replace(**out)
 
-            def sel(a, b):
-                return torch.where(d.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+    def _reset_graph(self, inputs, t0, u, peer) -> Optional[_Entry]:
+        """The entry of :meth:`auto_reset`'s graph for these inputs, or None
+        to run eagerly."""
+        if (self.mesh.world != 1 or self.config.include_link_obs or t0 is not None
+                or u is not None or peer is not None or not _capturable(inputs)):
+            return None
+        return _entry(self._reset_graphs, inputs, (self.config,))
 
-            return state.replace(
-                qpos=sel(fresh.qpos, state.qpos), qvel=sel(fresh.qvel, state.qvel),
-                time=sel(fresh.time, state.time),
-                episode_start=sel(fresh.episode_start, state.episode_start),
-                obs=sel(fresh.obs, state.obs))
+    def _renew_drawn(self, *inputs):
+        """:meth:`_renew` on the state's six tensors and, after them, the
+        draws of a plan, taken in order: the body the graph captures."""
+        drawn = iter(inputs[6:])
+        return self._renew(*inputs[:6], lambda fn, *shape, rows=True: next(drawn))
 
-    def _curriculum(self, state: VecState, fresh: VecState, generator, u, peer) -> VecState:
-        """``fresh`` with each env that restarts from a peer given the
-        peer's state (:meth:`auto_reset`'s curriculum)."""
+    def _renew(self, qpos, qvel, time, episode_start, obs, done, draw, t0=None, u=None,
+               peer=None):
+        """:meth:`auto_reset`'s body on the state's tensors, its draws from
+        ``draw``: ``(out, curriculum)``, ``out`` the new ``qpos``, ``qvel``,
+        ``time``, ``episode_start`` and ``obs``, ``curriculum`` ``{"use":
+        mask}`` of the envs given a peer's state, or ``{}`` without one."""
+        B = done.shape[0] * self.mesh.world  # the whole batch
+        with trace_annotation("vec/reset"):
+            fresh = self._fresh(B, draw, t0)
+        curriculum = {}
+        if self.config.curriculum_reset_prob > 0:
+            with trace_annotation("vec/curriculum"):
+                fresh, curriculum["use"] = self._curriculum(qpos, qvel, time, done, fresh,
+                                                            draw, u, peer)
+        d = done.to(torch.bool)
+
+        def sel(a, b):
+            return torch.where(d.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+        return dict(qpos=sel(fresh.qpos, qpos), qvel=sel(fresh.qvel, qvel),
+                    time=sel(fresh.time, time),
+                    episode_start=sel(fresh.episode_start, episode_start),
+                    obs=sel(fresh.obs, obs)), curriculum
+
+    def _curriculum(self, qpos, qvel, time, done, fresh: VecState, draw, u, peer):
+        """``(fresh, use)``: ``fresh`` with each env that restarts from a
+        peer given the peer's state, and the mask of those envs
+        (:meth:`auto_reset`'s curriculum)."""
         c = self.config
         mesh = self.mesh
-        B = state.done.shape[0] * mesh.world
-        dev = self.device
-        gdev = generator.device if generator is not None else dev
-        ok = state.done == 0
+        B = done.shape[0] * mesh.world
+        ok = done == 0
         if c.curriculum_phase_window:
             lo, hi = c.curriculum_phase_window
-            ph = phase(self.clip, state.time)
+            ph = phase(self.clip, time)
             ok = ok & (ph >= lo) & (ph <= hi)
         # the candidate peers' states, from every rank
-        nq, nv = state.qpos.shape[1], state.qvel.shape[1]
-        whole = mesh.gather_rows(torch.cat([state.qpos, state.qvel, state.time[:, None],
-                                            ok[:, None].to(state.qpos.dtype)], dim=1))
+        nq, nv = qpos.shape[1], qvel.shape[1]
+        whole = mesh.gather_rows(torch.cat([qpos, qvel, time[:, None],
+                                            ok[:, None].to(qpos.dtype)], dim=1))
         all_q, all_v = whole[:, :nq], whole[:, nq:nq + nv]
         all_t, all_ok = whole[:, nq + nv], whole[:, nq + nv + 1] > 0
         if u is None:
-            u = torch.rand(B, generator=generator, device=gdev).to(dev)
+            u = draw(torch.rand, rows=False)
         if peer is None:
             # Uniform over the eligible envs by inverse CDF, over all envs
             # when none is (ok[peer] then refuses the draw); no host sync.
             w = torch.where(all_ok.any(), all_ok.to(torch.float32), 1.0)
             cdf = torch.cumsum(w, 0)
-            r = torch.rand(B, generator=generator, device=gdev).to(dev) * cdf[-1]
+            r = draw(torch.rand, rows=False) * cdf[-1]
             peer = torch.searchsorted(cdf, r, right=True).clamp_(max=B - 1)
         u, peer = mesh.rows(u), mesh.rows(peer)
         use = (u < c.curriculum_reset_prob) & all_ok[peer]
-        count("vec/curriculum_restarts", use, where=state.done)
         peer_qpos = all_q[peer]
         if c.curriculum_recenter_xy:
             ref_q, _ = reference_state(self.clip, all_t[peer])
@@ -422,4 +530,4 @@ class MimicVecEnv:
                                reference_state(self.clip, t0)[0])
         return fresh.replace(qpos=qpos0, qvel=qvel0, time=t0,
                              episode_start=torch.where(use, t_peer, fresh.episode_start),
-                             obs=obs)
+                             obs=obs), use

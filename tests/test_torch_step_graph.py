@@ -181,8 +181,8 @@ def test_replay_equals_eager(clip, steps, num_envs):
                 "qpos", "qvel", "time", "episode_start", "obs", "reward", "done")},
                 metrics={k: v.clone() for k, v in got.metrics.items()}))
             state = got
-    ((_, graph),) = env._graphs.values()
-    assert isinstance(graph, vec_mod._StepGraph) and graph._launched == [ks]
+    (entry,) = env._graphs.values()
+    assert isinstance(entry.graph, vec_mod._Graph) and entry.graph._launched == [ks]
 
 
 @pytest.mark.gpu
